@@ -3,31 +3,51 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path end to end on the card at the full width of
-the default Gradient Boosted Trees model (core/hparams.py: 300 trees,
-max_depth 6, node capacity 128, binary classification with the Binomial
-head) over the feature schema of the Adult-like fixture. The model's
-weights are random, made from a numpy seed: trees grown breadth-first to
-depths of 3 to 6, thresholds drawn from each column's range, category
-masks over each vocabulary. Phases, one JSON line each:
+Drives the port's main path on the card: train the default Gradient Boosted
+Trees model (core/hparams.py: 300 trees, max_depth 6, shrinkage 0.1,
+LOSS_INCREASE early stopping on a 10% self-extracted validation set; the
+one override is growth_engine="device") on ``synth_higgs_like`` (100,000
+rows of 28 numerical columns and a binary label, the widths of UCI HIGGS,
+made from a numpy seed), compile it, and serve it through the traversal
+kernel. The serving front end is also driven at the full width of the
+default GBT over the Adult-like schema, with random weights from a numpy
+seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
+each column's range, category masks over each vocabulary). Phases, one
+JSON line each:
 
-  1. device  — the card (nvidia-smi name and power limit), torch and CUDA.
-  2. build   — the kernel built from ``csrc/`` with nvcc.
-  3. kernel  — each kernel against its plain PyTorch version on the card,
-               at the main path's shapes, hostile values included
-               (``torch.equal``), and the full traversal against the numpy
-               ``predict_naive`` (``array_equal``).
-  4. serve   — a ``ForestServer`` with the default chain answers ~50
-               raw-column requests; every answer equals the host oracle
-               ``finalize(predict_naive(encode(batch)))``, every dispatch
-               went through the kernel engine, and every kernel of the path
-               launched (counts reset just before, read just after).
-  5. timings — kernel and plain-version times per call (CUDA events around
-               each call, median of 20 after warm-up; the wrapper's host-side
-               checks fall inside the window), the kernel's own device time
-               (torch.profiler), its bound, and the serve phase's latency and
-               rows/s (a smoke reading over ~50 requests, server built
-               before the clock starts).
+  1. device        — the card (nvidia-smi name and power limit), torch, CUDA.
+  2. build         — every kernel source built from ``csrc/`` with nvcc, one
+                     nvcc per source, all started together.
+  3. kernel        — the traversal kernel against its plain PyTorch version
+                     at the serving shapes, hostile values included
+                     (``torch.equal``), and the full traversal against the
+                     numpy ``predict_naive`` (``array_equal``).
+  4. kernel_fused  — the split-search kernel against its plain version at
+                     the training shapes (N = 90,000, kf = 28, gh stats, every
+                     frontier width W = 1 .. 64; class and moment stats at
+                     N = 5,000) and on hostile inputs, under the tie rule of
+                     ``check_fused_case``; three runs of the same inputs
+                     must give the same bits.
+  5. train         — the default GBT trained on the card (counts reset just
+                     before, read just after: every level step launched the
+                     split-search kernel); a 4-tree run on 20,000 rows on the
+                     card against the same run on the CPU; and a traced
+                     20-tree run: seconds per span and the card's busy time.
+  6. serve_trained — the trained model's predictions for its 10,000
+                     validation rows through the CUDA traversal engine,
+                     equal to ``predict_naive`` bit for bit.
+  7. serve         — a ``ForestServer`` with the default chain answers ~50
+                     raw-column requests; every answer equals the host oracle
+                     ``finalize(predict_naive(encode(batch)))``, every
+                     dispatch went through the kernel engine, and the kernel
+                     launched (counts reset just before, read just after).
+  8. timings       — per kernel: time per call (CUDA events around each call,
+                     median of 20 after warm-up; the wrapper's host-side
+                     checks fall inside the window), device time
+                     (torch.profiler), the plain version's time and the
+                     bound; the serve phase's latency and rows/s (a smoke
+                     reading over ~50 requests, server built before the clock
+                     starts).
 
 Then the kernels line (``{"kernels": [...]}``), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -40,6 +60,7 @@ import json
 import platform
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +76,20 @@ HOSTILE = (float("nan"), float("inf"), float("-inf"), 1e20, -3.0, 255.9,
            256.0, 300.0, -1e20, 3e38)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor fp32 ops/s
 PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
+
+# The training main path: synth_higgs_like (repro_torch/data/tabular.py
+# SyntheticSpec), the widths of UCI HIGGS at the repo's scaled training size
+HIGGS = dict(name="synth_higgs_like", n=100_000, n_num=28, n_cat=0,
+             n_classes=2, seed=9)
+LEARNER_SEED = 1234          # the learners' default seed
+COMPARE_ROWS, COMPARE_TREES = 20_000, 4
+PROFILE_TREES = 20
+FUSED_N, FUSED_KF, FUSED_WIDTHS = 90_000, 28, (1, 2, 4, 8, 16, 32, 64)
+FUSED_SMALL_N = 5_000
+FUSED_TIMED_WIDTHS = (1, 64)
+FUSED_KERNELS = ("amax_kernel", "accumulate_kernel", "scan_kernel",
+                 "reduce_kernel", "Memset")
+STRUCT_FIELDS = ("feature", "split_bin", "cat_mask", "left_child", "n_nodes")
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -193,15 +228,21 @@ def emit(**fields) -> None:
 # ------------------------------------------------------------------ phases
 
 def build_kernels() -> dict:
-    """Build the path's one kernel source with nvcc and load it."""
+    """Build every kernel source of the path with nvcc, one process per
+    source, all started together, then load each library."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.forest_infer import forest_infer
-    r = _build.build(forest_infer.SOURCE)
-    forest_infer.library()
-    return {forest_infer.SOURCE.name: {
+    from repro_torch.kernels.histogram import fused
+    modules = (forest_infer, fused)
+    with ThreadPoolExecutor(len(modules)) as pool:
+        results = list(pool.map(lambda m: _build.build(m.SOURCE), modules))
+    for m in modules:
+        m.library()
+    return {m.SOURCE.name: {
         "seconds": r.seconds,
         "ptxas": [ln.strip() for ln in r.log.splitlines()
-                  if "registers" in ln or "spill" in ln]}}
+                  if "registers" in ln or "spill" in ln]}
+        for m, r in zip(modules, results)}
 
 
 def check_kernel(model, device, sizes=KERNEL_SIZES, naive_rows=64) -> dict:
@@ -285,6 +326,245 @@ def serve(model, device, n_requests: int = 50, wave: int = 5,
             "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"]}
 
 
+# ------------------------------------------------- split search (B1) checks
+
+def fused_inputs(n: int, kf: int, width: int, kind: str, seed: int,
+                 device, inactive: float = 0.05):
+    """(codes, stats, slot_of) on ``device`` as a level step gives them:
+    uint8 codes, float32 stats of the kind (gh: g, h_gain, h_true, bag as
+    the GBT builds them), int32 slots in [0, width) with a share of
+    inactive rows (-1)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (n, kf)).astype(np.uint8)
+    if kind == "gh":
+        p = rng.uniform(0.02, 0.98, n)
+        y = (rng.random(n) < p).astype(np.float64)
+        stats = np.stack([p - y, np.ones(n), p * (1 - p), np.ones(n)], 1)
+    elif kind == "class":
+        c = rng.integers(0, 2, n)
+        stats = np.stack([c == 0, c == 1, np.ones(n)], 1).astype(np.float64)
+    else:
+        yv = rng.normal(size=n)
+        stats = np.stack([yv, yv * yv, np.ones(n)], 1)
+    slot = rng.integers(0, width, n).astype(np.int32)
+    slot[rng.random(n) < inactive] = -1
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
+                 (codes, stats.astype(np.float32), slot))
+
+
+def check_fused_case(codes, stats, slot, width, *, kind="gh", l2=0.0,
+                     min_examples=5, runs=3) -> dict:
+    """The split-search kernel against its plain version on the same
+    tensors. Tie rule: with g* the plain best gain of a slot and
+    eps = REL_GAIN_EPS * |score(parent)| + 1e-6 * |g*|, the kernel's gain
+    lies within eps of g*; where the plain runner-up (the best other
+    (column, bin) candidate) lies more than 2 * eps below g*, the
+    (column, split_bin) pairs are identical. Unscoreable slots are
+    (-1e30, -1, 0) in both. On the card, ``runs`` launches on the same
+    inputs give the same bits (the plain version on the CPU promises no
+    such thing: torch's vectorized and scalar ``log`` may differ by an ulp
+    with the threads' split of a tensor)."""
+    import torch
+    from repro_torch.core.splitters import REL_GAIN_EPS
+    from repro_torch.kernels.histogram.fused import (
+        NEG_INF, _numerical_gains, fused_split, score_stats)
+    from repro_torch.kernels.histogram.ref import (
+        fused_split_ref, histogram_ref)
+    kw = dict(kind=kind, l2=l2, min_examples=min_examples)
+    runs = runs if codes.is_cuda else 1
+    outs = [fused_split(codes, stats, slot, width, **kw) for _ in range(runs)]
+    gain, col, sbin = outs[0]
+    for o in outs[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(outs[0], o)):
+            raise AssertionError("split-search kernel: repeated launches on "
+                                 "the same inputs gave different outputs")
+    pg, pc, pb = fused_split_ref(codes, stats, slot, width, **kw)
+    hist = histogram_ref(codes, stats.double(), slot, width, 256)
+    parent = hist.sum(dim=2)
+    g = _numerical_gains(hist, parent, kind, l2, min_examples).reshape(width, -1)
+    pscore = score_stats(parent[:, 0], kind, l2)
+    gain, col, sbin, pg, pc, pb, pscore = (
+        t.cpu().numpy() for t in (gain, col, sbin, pg, pc, pb, pscore))
+    g = g.cpu().numpy()
+    none = pc < 0
+    if not np.array_equal(none, col < 0):
+        raise AssertionError(f"scoreable slots differ: kernel columns {col}, "
+                             f"plain {pc}")
+    if (gain[none] != np.float32(NEG_INF)).any() or (sbin[none] != 0).any():
+        raise AssertionError("an unscoreable slot is not (-1e30, -1, 0)")
+    err, pinned = 0.0, 0
+    for w in np.flatnonzero(~none):
+        best = (int(pc[w]) * 256 + int(pb[w]) - 1)
+        others = np.delete(g[w], best)
+        runner = float(others.max()) if others.size else -np.inf
+        eps = REL_GAIN_EPS * abs(float(pscore[w])) + 1e-6 * abs(float(pg[w]))
+        diff = abs(float(gain[w]) - float(pg[w]))
+        err = max(err, diff)
+        if diff > eps:
+            raise AssertionError(f"slot {w}: kernel gain {gain[w]} vs plain "
+                                 f"{pg[w]} (eps {eps})")
+        if float(pg[w]) - runner > 2 * eps:
+            pinned += 1
+            if (col[w], sbin[w]) != (pc[w], pb[w]):
+                raise AssertionError(
+                    f"slot {w}: kernel split ({col[w]}, {sbin[w]}) != plain "
+                    f"({pc[w]}, {pb[w]}) with a clear winner")
+    return {"slots": int(width), "scoreable": int((~none).sum()),
+            "pinned": pinned, "max_abs_err": err, "columns": col.tolist()}
+
+
+def check_fused(device) -> dict:
+    """B1 against its plain version at the training shapes and on hostile
+    inputs. Returns the cases' summaries and the largest gain error."""
+    import torch
+    cases = {}
+    for w in FUSED_WIDTHS:
+        cases[f"gh N={FUSED_N} W={w}"] = check_fused_case(
+            *fused_inputs(FUSED_N, FUSED_KF, w, "gh", 10 + w, device), w)
+    for kind in ("class", "moment"):
+        cases[f"{kind} N={FUSED_SMALL_N} W=8"] = check_fused_case(
+            *fused_inputs(FUSED_SMALL_N, FUSED_KF, 8, kind, 3, device), 8,
+            kind=kind)
+    # empty slots: rows only in slots 0..4 of 8
+    codes, stats, slot = fused_inputs(4_999, FUSED_KF, 5, "gh", 4, device)
+    r = cases["empty slots, ragged N=4999"] = check_fused_case(
+        codes, stats, slot, 8)
+    if r["columns"][5:] != [-1, -1, -1]:
+        raise AssertionError(f"empty slots were split: {r['columns']}")
+    # every row inactive
+    r = cases["all rows inactive"] = check_fused_case(
+        codes, stats, torch.full_like(slot, -1), 4)
+    if r["scoreable"]:
+        raise AssertionError("a slot with no active row was split")
+    # ragged, tiny N
+    for n in (1, 7):
+        cases[f"ragged N={n}"] = check_fused_case(
+            *fused_inputs(n, FUSED_KF, 2, "gh", n, device, inactive=0.0), 2,
+            min_examples=1)
+    # min_examples boundaries: slots of 10 and 9 rows with min_examples 5
+    # (one feasible split point, none), and min_examples 0 (empty sides)
+    codes, stats, _ = fused_inputs(19, FUSED_KF, 2, "gh", 5, device)
+    slot = torch.tensor([0] * 10 + [1] * 9, dtype=torch.int32, device=device)
+    r = cases["min_examples=5, slots of 10 and 9"] = check_fused_case(
+        codes, stats, slot, 2)
+    if r["columns"][1] != -1:
+        raise AssertionError("a 9-row slot was split with min_examples=5")
+    cases["min_examples=0"] = check_fused_case(
+        codes, stats, slot, 3, min_examples=0)
+    # a duplicated column ties exactly and the lower column wins
+    codes, stats, slot = fused_inputs(FUSED_N, FUSED_KF, 16, "gh", 6, device)
+    codes[:, 7] = codes[:, 2]
+    r = cases["duplicated column 7 == 2"] = check_fused_case(
+        codes, stats, slot, 16)
+    if 7 in r["columns"]:
+        raise AssertionError("the duplicate of column 2 won a tie")
+    err = max(c["max_abs_err"] for c in cases.values())
+    for c in cases.values():
+        del c["columns"]
+    return {"cases": cases, "max_abs_err": err}
+
+
+# ------------------------------------------------------------- training
+
+def higgs_like(n: int = HIGGS["n"]) -> dict:
+    """synth_higgs_like at ``n`` rows: raw columns num_0..num_27 + label."""
+    from repro_torch.data.tabular import SyntheticSpec, make_dataset
+    return make_dataset(SyntheticSpec(**{**HIGGS, "n": n}))
+
+
+def train_gbt(data: dict, device, **hparams):
+    """The default GBT with the device growth engine, trained on ``device``."""
+    from repro_torch.core.gbt import GradientBoostedTreesLearner
+    return GradientBoostedTreesLearner(
+        label="label", seed=LEARNER_SEED, device=device,
+        growth_engine="device", **hparams).train(data)
+
+
+def validation_rows(data: dict) -> dict:
+    """The rows the learner extracted as its validation set (not trained
+    on): the held-out rows of the serve_trained phase."""
+    from repro_torch.core.models import extract_validation
+    n = len(data["label"])
+    _, valid = extract_validation(n, 0.1, LEARNER_SEED)
+    return {k: v[valid] for k, v in data.items()}
+
+
+def compare_card_and_cpu(device) -> dict:
+    """A 4-tree run on the card against the same run on the CPU (the
+    kernel's plain version): >= 99.5% of each structure field agrees, and
+    predictions agree to 1e-4. A second card run gives the same forest bit
+    for bit (the split search and the segment sums are exact on the card)."""
+    data = higgs_like(COMPARE_ROWS)
+    card = train_gbt(data, device, num_trees=COMPARE_TREES)
+    again = train_gbt(data, device, num_trees=COMPARE_TREES)
+    cpu = train_gbt(data, "cpu", num_trees=COMPARE_TREES)
+    repeat = all(np.array_equal(getattr(card.forest, k), getattr(again.forest, k))
+                 for k in STRUCT_FIELDS + ("leaf_value", "threshold"))
+    if not repeat:
+        raise AssertionError("two card runs of the same training differ")
+    agree = {k: float((getattr(card.forest, k) == getattr(cpu.forest, k)).mean())
+             for k in STRUCT_FIELDS}
+    low = {k: v for k, v in agree.items() if v < 0.995}
+    if low:
+        raise AssertionError(f"card vs CPU structure agrees only {low}")
+    rows = {k: v[:2000] for k, v in data.items() if k != "label"}
+    pa = card.predict(rows, engine="ref", device="cpu")
+    pb = cpu.predict(rows, engine="ref", device="cpu")
+    diff = float(np.abs(pa - pb).max())
+    if not np.allclose(pa, pb, atol=1e-4, rtol=0):
+        raise AssertionError(f"card vs CPU predictions differ by {diff}")
+    return {"rows": COMPARE_ROWS, "trees": COMPARE_TREES, "agree": agree,
+            "pred_max_abs_diff": diff, "card_runs_identical": repeat}
+
+
+def profile_training(data: dict, device, n_trees: int = PROFILE_TREES) -> dict:
+    """Where a training run's time goes: a traced ``n_trees`` run of the
+    default GBT, with seconds per span (the repro_torch.obs tracer; while
+    tracing, the level-step span closes after a CUDA sync, so it holds the
+    level's device time) and the card's busy time (torch.profiler: the sum
+    of every kernel, copy and memset over the run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import clock, trace
+    from repro_torch.obs.export import phase_summary
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace.capture() as tracer:
+            t0 = clock.perf()
+            train_gbt(data, device, num_trees=n_trees,
+                      early_stopping="NONE")
+            wall = clock.perf() - t0
+        torch.cuda.synchronize()
+    phases = {name: {"count": int(d["count"]), "total_s": d["total_s"]}
+              for name, d in phase_summary(tracer).items()}
+    busy_ms = sum(getattr(ev, "device_time_total", 0.0)
+                  for ev in prof.key_averages()) / 1e3
+    trees_s = phases["gbt/tree"]["total_s"]
+    return {"trees": n_trees, "wall_s": wall, "phases": phases,
+            "device_busy_ms": busy_ms,
+            # the wall includes the host's data preparation
+            "device_idle_share_of_wall": 1.0 - busy_ms / 1e3 / wall,
+            "device_idle_share_of_tree_spans": 1.0 - busy_ms / 1e3 / trees_s}
+
+
+def serve_trained(model, rows: dict, device) -> dict:
+    """The trained model's predictions through the CUDA traversal engine,
+    held to ``finalize(predict_naive(encode(rows)))`` bit for bit."""
+    from repro_torch.core.dataspec import BatchEncoder
+    from repro_torch.core.tree import predict_naive
+    from repro_torch.obs import clock
+    feats = {k: rows[k] for k in model.features}
+    predictor = model.predictor("cuda", device)
+    t0 = clock.perf()
+    got = predictor.predict(feats)
+    seconds = clock.perf() - t0
+    X = BatchEncoder(model.spec, model.features).encode(feats)
+    want = model._compile_finalize()(predict_naive(model.forest, X))
+    if not np.array_equal(got, want):
+        raise AssertionError("trained model: cuda engine != predict_naive")
+    return {"rows": len(X), "engine": predictor.name, "seconds": seconds}
+
+
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of one call, from CUDA events around each call."""
     import torch
@@ -303,10 +583,10 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def profiled_ms(fn, kernel: str, reps: int = 20) -> float | None:
-    """Mean device time per launch of the CUDA kernel named ``kernel``, from
-    torch.profiler's CUDA activity over ``reps`` calls; None when the
-    profiler records no device time for it."""
+def profiled_ms(fn, kernels: tuple, reps: int = 20) -> float | None:
+    """Device time per call of ``fn``: the CUDA activity whose names
+    contain one of ``kernels``, from torch.profiler over ``reps`` calls;
+    None when the profiler records no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -315,12 +595,10 @@ def profiled_ms(fn, kernel: str, reps: int = 20) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total_us += getattr(ev, "device_time_total", 0.0)
-            count += ev.count
-    return total_us / count / 1e3 if count and total_us else None
+    total_us = sum(getattr(ev, "device_time_total", 0.0)
+                   for ev in prof.key_averages()
+                   if any(k in ev.key for k in kernels))
+    return total_us / reps / 1e3 if total_us else None
 
 
 def kernel_bound(model, X, packed) -> dict:
@@ -366,14 +644,51 @@ def time_kernel(model, device) -> dict:
         X = torch.from_numpy(encoded_inputs(n, seed=100 + n)).to(device)
         kernel = lambda: forest_predict_tiled(X, *packed.tables)
         row = {"kernel_ms": device_ms(kernel),
-               "kernel_device_ms": profiled_ms(kernel,
-                                               "forest_infer_tiled_kernel"),
+               "kernel_device_ms": profiled_ms(
+                   kernel, ("forest_infer_tiled_kernel",)),
                "plain_ms": device_ms(
                    lambda: forest_predict_packed_ref(X, *packed.tables)),
                "kernel_path_ms": device_ms(
                    lambda: ops.forest_predict(model.forest, X, "cuda", device))}
         row.update(kernel_bound(model, X, packed))
         out[n] = row
+    return out
+
+
+def fused_bound(codes, stats, slot, width) -> dict:
+    """The least time the card could take for one split search: the bytes
+    it must move (codes, stats and slots read once, three outputs per slot
+    written once) over HBM bandwidth, against its operations (one add per
+    active row, column and stat into the histogram, and per slot, column,
+    bin and stat one prefix-sum add and ~4 score operations) over the fp32
+    peak."""
+    N, kf = codes.shape
+    S = stats.shape[1]
+    active = int((slot >= 0).sum())
+    nbytes = (codes.numel() + stats.numel() * 4 + slot.numel() * 4
+              + width * 12)
+    ops = active * kf * S + width * kf * 256 * S * 5
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_fused(device) -> dict:
+    """B1 and its plain version at the training shape (N = 90,000, kf = 28,
+    gh stats) for the first and the widest level."""
+    from repro_torch.kernels.histogram.fused import fused_split
+    from repro_torch.kernels.histogram.ref import fused_split_ref
+    out = {}
+    for w in FUSED_TIMED_WIDTHS:
+        args = fused_inputs(FUSED_N, FUSED_KF, w, "gh", 200 + w, device)
+        kernel = lambda: fused_split(*args, w, kind="gh", min_examples=5)
+        row = {"kernel_ms": device_ms(kernel),
+               "kernel_device_ms": profiled_ms(kernel, FUSED_KERNELS),
+               "plain_ms": device_ms(
+                   lambda: fused_split_ref(*args, w, kind="gh",
+                                           min_examples=5))}
+        row.update(fused_bound(*args, w))
+        out[w] = row
     return out
 
 
@@ -390,7 +705,10 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; this script measures "
               "the port on a GPU and has nothing to run here.", file=sys.stderr)
         return 1
+    from repro_torch.core import grower_device
     from repro_torch.kernels.forest_infer import forest_infer
+    from repro_torch.kernels.histogram import fused
+    from repro_torch.obs import clock
     device = torch.device("cuda")
     card = nvidia_smi()
     print(card, flush=True)
@@ -410,7 +728,46 @@ def main() -> int:
         raise AssertionError("the kernel check made no kernel launch")
     emit(phase="kernel", **kern, launches=forest_infer.LAUNCHES)
 
-    forest_infer.LAUNCHES = 0            # the main path's run starts here
+    fused_check = check_fused(device)
+    emit(phase="kernel_fused", **fused_check, launches=fused.LAUNCHES)
+
+    # the training path: _resolve_impl("auto") on numerical data is the kernel
+    if grower_device._resolve_impl("auto", False, device) != "cuda":
+        raise AssertionError("auto does not resolve to the CUDA kernel")
+    data = higgs_like()
+    fused.LAUNCHES = 0                   # the training run starts here
+    grower_device.LEVEL_STEPS = 0
+    t0 = clock.perf()
+    trained = train_gbt(data, device)
+    train_s = clock.perf() - t0
+    train_launches = fused.LAUNCHES      # ... and ends here
+    steps = grower_device.LEVEL_STEPS
+    logs = trained.training_logs
+    if logs["growth_engine"] != "device" or logs["device_impl"] != "cuda":
+        raise AssertionError(f"trained with {logs['growth_engine']} / "
+                             f"{logs['device_impl']}, not device / cuda")
+    if steps <= 0 or train_launches < steps:
+        raise AssertionError(f"{steps} level steps made {train_launches} "
+                             "split-search launches")
+    kept = trained.forest.n_trees
+    valid = validation_rows(data)
+    emit(phase="train", rows=len(data["label"]), seconds=train_s,
+         trees_grown=len(logs["train_loss"]), trees_kept=kept,
+         level_steps=steps, launches=train_launches,
+         valid_loss=logs["valid_loss"][kept - 1],
+         valid_accuracy=trained.self_evaluation["accuracy"],
+         valid_rows=len(valid["label"]),
+         card_vs_cpu=compare_card_and_cpu(device),
+         profile=profile_training(data, device))
+
+    forest_infer.LAUNCHES = 0            # serving the trained model
+    served = serve_trained(trained, valid, device)
+    trained_launches = forest_infer.LAUNCHES
+    if trained_launches <= 0:
+        raise AssertionError("serving the trained model launched no kernel")
+    emit(phase="serve_trained", **served, launches=trained_launches)
+
+    forest_infer.LAUNCHES = 0            # the serving run starts here
     stats = serve(model, device)
     launches = forest_infer.LAUNCHES     # ... and ends here
     if stats["engine_dispatches"] != {"cuda": stats["dispatches"]}:
@@ -420,12 +777,16 @@ def main() -> int:
     emit(phase="serve", **stats, launches=launches)
 
     timings = time_kernel(model, device)
+    fused_t = time_fused(device)
     emit(phase="timings", card=card, **{f"N={n}": row for n, row in timings.items()},
+         **{f"fused W={w}": row for w, row in fused_t.items()},
          server_p50_ms=stats["p50_ms"], server_p99_ms=stats["p99_ms"],
          server_rows_per_s=stats["rows_per_s"])
 
     main_n = TIMED_SIZES[0]   # the largest dispatch bucket of the server
     t = timings[main_n]
+    main_w = FUSED_TIMED_WIDTHS[-1]   # the widest level of a depth-6 tree
+    f = fused_t[main_w]
     print(json.dumps({"kernels": [{
         "name": "forest_infer_tiled",
         "route": "cuda",
@@ -438,6 +799,18 @@ def main() -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None,
         "shape": f"N={main_n}, B={kern['B']}, TB={kern['TB']}, M={kern['M']}, O=1",
+    }, {
+        "name": "fused_split",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/histogram/csrc/fused_split.cu",
+        "replaces": "src/repro/kernels/histogram/fused.py:148",
+        "launches": train_launches,
+        "max_abs_err": fused_check["max_abs_err"],
+        "ms": f["kernel_ms"], "device_ms": f["kernel_device_ms"],
+        "plain_ms": f["plain_ms"],
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+        "library_ms": None,
+        "shape": f"N={FUSED_N}, kf={FUSED_KF}, S=4 (gh), W={main_w}",
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

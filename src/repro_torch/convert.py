@@ -9,12 +9,16 @@ The port never sees a ``repro`` object and never unpickles ``model.pkl``
   * the dataspec dict that ``repro.core.dataspec.spec_to_dict`` writes (the
     same as ``dataspec.json`` in a saved model directory);
   * the feature list, task, classes and, for a GBT, the loss name.
+
+``binned_from_arrays`` carries a binned dataset (``BinnedFeatures``) across
+the same way, so both packages can grow trees from the same codes.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.core.api import Task, YdfError
+from repro_torch.core.binning import BinnedFeatures
 from repro_torch.core.dataspec import spec_from_dict
 from repro_torch.core.losses import loss_by_name
 from repro_torch.core.models import (
@@ -109,3 +113,25 @@ def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
                            "loss= with the reference model's loss name.")
     return GradientBoostedTreesModel(loss=loss_by_name(loss, forest.out_dim),
                                      **common)
+
+
+def binned_from_arrays(codes, n_bins, is_cat, boundaries,
+                       names) -> BinnedFeatures:
+    """A port ``BinnedFeatures`` from the reference's fields, so both
+    packages' growers see the same codes: codes (N, F) uint8, n_bins (F,),
+    is_cat (F,) bool, boundaries (one ascending array per numerical
+    feature, None per categorical one), names."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    if codes.ndim != 2:
+        raise YdfError(f"codes must be (N, F), got {codes.shape}")
+    F = codes.shape[1]
+    if len(n_bins) != F or len(is_cat) != F or len(boundaries) != F \
+            or len(names) != F:
+        raise YdfError(f"n_bins, is_cat, boundaries and names must each have "
+                       f"{F} entries, one per column of codes")
+    return BinnedFeatures(
+        codes=codes, n_bins=np.asarray(n_bins, np.int32),
+        is_cat=np.asarray(is_cat, bool),
+        boundaries=[None if b is None else np.asarray(b, np.float32)
+                    for b in boundaries],
+        names=list(names))

@@ -1,12 +1,21 @@
-"""Task kinds and the typed errors of the port (the counterpart of
-``repro.core.api``'s ``Task``, ``YdfError`` and ``EngineFailure``).
+"""Task kinds, the typed errors and the Learner abstraction of the port
+(the counterpart of ``repro.core.api``'s ``Task``, ``YdfError``,
+``EngineFailure``, ``Learner`` and ``register_learner``).
+
+A LEARNER is a function examples -> Model (paper §3.1); hyper-parameters
+are fixed at construction and ``train`` is deterministic given
+(hyper-parameters, dataset, seed). Learners register by name, as YDF's
+``REGISTER_AbstractLearner`` does.
 
 Error messages follow the paper's §2.1/§2.2 guidance: say what failed in
 task terms, show the offending values, and propose concrete fixes.
 """
 from __future__ import annotations
 
+import abc
+import dataclasses
 import enum
+from typing import Callable
 
 
 class Task(enum.Enum):
@@ -39,3 +48,56 @@ class EngineFailure(YdfError):
         super().__init__(message)
         self.engine = engine
         self.transient = transient
+
+
+class Learner(abc.ABC):
+    """examples -> Model. ``device`` is where training runs: None is cuda
+    (raising ``YdfError`` without a card), ``"cpu"`` runs the kernels'
+    plain versions; the trained model serves on any device."""
+
+    def __init__(self, label: str, task: Task = Task.CLASSIFICATION, *,
+                 seed: int = 1234, template: str | None = None, device=None,
+                 **hparams):
+        self.label = label
+        self.task = task
+        self.seed = seed
+        self.template = template
+        self.device = device
+        hp = self.default_hparams()
+        if template:
+            # template first, explicit overrides second (§3.11)
+            from repro_torch.core.hparams import apply_template
+            hp = apply_template(_name_of(type(self)), hp, template)
+        unknown = set(hparams) - set(dataclasses.asdict(hp))
+        if unknown:
+            known = sorted(dataclasses.asdict(hp))
+            raise YdfError(
+                f"Unknown hyper-parameter(s) {sorted(unknown)} for "
+                f"{type(self).__name__}. Known hyper-parameters: {known}.")
+        self.hparams = dataclasses.replace(hp, **hparams)
+
+    @abc.abstractmethod
+    def train(self, dataset, valid=None, checkpoint=None):
+        """Train a Model. ``valid`` is optional (§3.3): a learner that needs
+        validation and gets none extracts it from the training set."""
+
+    @abc.abstractmethod
+    def default_hparams(self):
+        ...
+
+
+_LEARNERS: dict[str, type] = {}
+
+
+def register_learner(name: str) -> Callable[[type], type]:
+    def deco(cls: type) -> type:
+        if name in _LEARNERS and _LEARNERS[name] is not cls:
+            raise ValueError(f"duplicate learner registration {name!r}")
+        _LEARNERS[name] = cls
+        cls._registry_name = name
+        return cls
+    return deco
+
+
+def _name_of(cls: type) -> str:
+    return getattr(cls, "_registry_name", cls.__name__)

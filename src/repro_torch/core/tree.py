@@ -22,6 +22,7 @@ result for those values the C standard leaves undefined.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -44,6 +45,11 @@ class Forest:
     tree_class: np.ndarray | None = None  # (T,) int32: GBT multiclass tree->class
     init_pred: np.ndarray | None = None   # (out_dim,) float32 bias (GBT)
     feature_names: list[str] = field(default_factory=list)
+    # training-side fields (None on forests carried across from the JAX
+    # package): the binned-domain threshold, and the split gain recorded
+    # for structural importances
+    split_bin: np.ndarray | None = None   # (T, M) uint16
+    split_gain: np.ndarray | None = None  # (T, M) float32
 
     @property
     def n_trees(self) -> int:
@@ -52,6 +58,15 @@ class Forest:
     @property
     def max_nodes(self) -> int:
         return self.feature.shape[1]
+
+    def truncated(self, n_trees: int) -> "Forest":
+        sl = lambda a: None if a is None else a[:n_trees]
+        return dataclasses.replace(
+            self, feature=sl(self.feature), threshold=sl(self.threshold),
+            split_bin=sl(self.split_bin), cat_mask=sl(self.cat_mask),
+            left_child=sl(self.left_child), leaf_value=sl(self.leaf_value),
+            n_nodes=sl(self.n_nodes), split_gain=sl(self.split_gain),
+            tree_class=sl(self.tree_class))
 
 
 def empty_forest(n_trees: int, max_nodes: int, out_dim: int, *,
@@ -69,6 +84,8 @@ def empty_forest(n_trees: int, max_nodes: int, out_dim: int, *,
         tree_class=np.zeros(T, np.int32),
         init_pred=np.zeros(out_dim, np.float32),
         feature_names=list(feature_names or []),
+        split_bin=np.zeros((T, M), np.uint16),
+        split_gain=np.zeros((T, M), np.float32),
     )
 
 
@@ -123,25 +140,63 @@ def cat_code(x) -> np.ndarray:
 # Reference engines (numpy).
 # =====================================================================
 
+def eval_node_conditions(forest: Forest, X: np.ndarray, t: np.ndarray,
+                         node: np.ndarray) -> np.ndarray:
+    """Go-right decisions of nodes ``(t, node)`` (broadcast (N, T)) for rows
+    ``X`` ((N, 1, F) or broadcastable); False at leaves."""
+    f = forest.feature[t, node]                       # (N, T)
+    x = np.take_along_axis(X, np.maximum(f, 0)[..., None], axis=-1)[..., 0]
+    go = x >= forest.threshold[t, node]
+    cat = forest.cat_mask[t, node]                    # (N, T, MASK_WORDS)
+    code = cat_code(x)
+    word = np.take_along_axis(cat, (code // 32)[..., None], axis=-1)[..., 0]
+    bit = (word >> (code % 32).astype(np.uint32)) & 1
+    go = np.where(cat.any(axis=-1), bit.astype(bool), go)
+    return np.where(f == -1, False, go)
+
+
+def predict_raw(forest: Forest, X: np.ndarray) -> np.ndarray:
+    """Lockstep traversal of every (example, tree) pair for ``depth`` rounds
+    of gathers. X: (N, F) float32 -> (N, T, leaf_dim)."""
+    N = X.shape[0]
+    T = forest.n_trees
+    t = np.arange(T)[None, :].repeat(N, 0)        # (N, T)
+    node = np.zeros((N, T), np.int64)
+    Xe = X[:, None, :]                             # (N, 1, F) over trees
+    for _ in range(max(1, forest.depth)):
+        go = eval_node_conditions(forest, Xe, t, node)
+        child = forest.left_child[t, node]
+        node = np.where(child >= 0, child + go, node)
+    return forest.leaf_value[t, node]
+
+
 def predict_naive(forest: Forest, X: np.ndarray) -> np.ndarray:
     """Algorithm 1 of the paper: per-example while-loop. The readable
-    oracle. X: (N, F) float32 -> (N, T, leaf_dim)."""
-    N = X.shape[0]
-    out = np.zeros((N, forest.n_trees, forest.leaf_value.shape[-1]), np.float32)
-    for n in range(N):
-        for t in range(forest.n_trees):
+    oracle. X: (N, F) float32 -> (N, T, leaf_dim).
+
+    The node tables and rows are read as Python lists (float32 values widen
+    to float exactly, so every comparison is the float32 one); the leaf
+    values are gathered once at the end."""
+    N, T = X.shape[0], forest.n_trees
+    left, feature = forest.left_child.tolist(), forest.feature.tolist()
+    threshold = forest.threshold.tolist()
+    is_cat = forest.cat_mask.any(axis=-1).tolist()
+    leaf = np.zeros((N, T), np.int64)
+    for n, x in enumerate(np.asarray(X, np.float32).tolist()):
+        for t in range(T):
+            lc, ft, th, ic = left[t], feature[t], threshold[t], is_cat[t]
             node = 0
-            while forest.left_child[t, node] >= 0:
-                f = forest.feature[t, node]
-                if forest.cat_mask[t, node].any():
-                    code = int(cat_code(X[n, f]))
+            while lc[node] >= 0:
+                f = ft[node]
+                if ic[node]:
+                    code = int(cat_code(x[f]))
                     go = bool((forest.cat_mask[t, node, code // 32]
                                >> (code % 32)) & 1)
                 else:
-                    go = X[n, f] >= forest.threshold[t, node]
-                node = forest.left_child[t, node] + int(go)
-            out[n, t] = forest.leaf_value[t, node]
-    return out
+                    go = x[f] >= th[node]
+                node = lc[node] + int(go)
+            leaf[n, t] = node
+    return forest.leaf_value[np.arange(T)[None, :], leaf]
 
 
 def compile_predict_raw(forest: Forest):

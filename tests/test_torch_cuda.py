@@ -6,8 +6,12 @@ one (the decision is made in a fixture, at run time). On the card:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Imports neither ``jax`` nor ``repro``, so it runs where only the port's
-dependencies are installed. Tolerance: none (``torch.equal``) — the kernel
-selects the same leaves as its plain version.
+dependencies are installed. Tolerances: the traversal kernel none
+(``torch.equal``) — it selects the same leaves as its plain version; the
+split-search kernel the tie rule of ``chip_smoke.check_fused_case`` (gain
+within REL_GAIN_EPS * |score(parent)| + 1e-6 * |gain| of the plain
+version's, the same split wherever the plain runner-up is clearly below),
+and the same bits over three launches.
 """
 from __future__ import annotations
 
@@ -113,3 +117,64 @@ def test_server_on_the_card_goes_through_the_kernel(cuda):
     stats = chip_smoke.serve(model, cuda, n_requests=8, wave=4)
     assert stats["engine_dispatches"] == {"cuda": 2}
     assert forest_infer.LAUNCHES >= 2
+
+
+# ------------------------------------------------ split search (B1)
+
+@pytest.mark.parametrize("n,width,kind", [
+    (90_000, 1, "gh"), (90_000, 8, "gh"), (90_000, 64, "gh"),
+    (4_999, 16, "class"), (4_999, 16, "moment"), (3, 2, "gh")])
+def test_fused_split_kernel_matches_plain_version(cuda, n, width, kind):
+    import chip_smoke
+    args = chip_smoke.fused_inputs(n, 28, width, kind, seed=n + width,
+                                   device=cuda)
+    r = chip_smoke.check_fused_case(*args, width, kind=kind,
+                                    min_examples=1 if n < 10 else 5)
+    assert r["slots"] == width
+
+
+def test_fused_split_hostile_cases(cuda):
+    import chip_smoke
+    r = chip_smoke.check_fused(cuda)
+    assert r["cases"]["all rows inactive"]["scoreable"] == 0
+
+
+def test_fused_split_counts_launches_and_never_takes_the_plain_version(
+        cuda, monkeypatch):
+    from repro_torch.kernels.histogram import fused, ops
+    import chip_smoke
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(fused, "fused_split_ref", refuse)
+    args = chip_smoke.fused_inputs(1000, 5, 4, "gh", seed=1, device=cuda)
+    before = fused.LAUNCHES
+    fused.fused_split(*args, 4)
+    ops.fused_best_split(*args, 4)
+    ops.fused_best_split(*args, 4, impl="cuda")
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 3
+
+
+def test_training_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
+    import chip_smoke
+    from repro_torch.core import grower_device
+    from repro_torch.kernels.histogram import fused
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    data = chip_smoke.higgs_like(5_000)
+    monkeypatch.setattr(fused, "fused_split_ref", refuse)
+    launches, steps = fused.LAUNCHES, grower_device.LEVEL_STEPS
+    model = chip_smoke.train_gbt(data, cuda, num_trees=3)
+    steps = grower_device.LEVEL_STEPS - steps
+    assert model.training_logs["device_impl"] == "cuda"
+    assert steps > 0 and fused.LAUNCHES - launches == steps
+    rows = {k: v[:500] for k, v in data.items() if k != "label"}
+    from repro_torch.core.dataspec import BatchEncoder
+    from repro_torch.core.tree import predict_naive
+    X = BatchEncoder(model.spec, model.features).encode(rows)
+    want = model._compile_finalize()(predict_naive(model.forest, X))
+    assert np.array_equal(model.predict(rows, engine="cuda", device=cuda), want)
