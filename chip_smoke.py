@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path on the card: train the default Gradient Boosted
-Trees model (core/hparams.py: 300 trees, max_depth 6, shrinkage 0.1,
-LOSS_INCREASE early stopping on a 10% self-extracted validation set; the
-one override is growth_engine="device") on ``synth_higgs_like`` (100,000
-rows of 28 numerical columns and a binary label, the widths of UCI HIGGS,
-made from a numpy seed), compile it, and serve it through the traversal
+Drives the port's main paths on the card: train the default Gradient
+Boosted Trees model (core/hparams.py: 300 trees, max_depth 6, shrinkage
+0.1, LOSS_INCREASE early stopping on a 10% self-extracted validation set)
+on ``synth_higgs_like`` (100,000 rows of 28 numerical columns and a binary
+label, the widths of UCI HIGGS, made from a numpy seed) through the device
+growth engine (growth_engine="device") and through the default batched
+engine (no override), compile it, and serve it through the traversal
 kernel. The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
@@ -22,30 +23,51 @@ JSON line each:
                      at the serving shapes, hostile values included
                      (``torch.equal``), and the full traversal against the
                      numpy ``predict_naive`` (``array_equal``).
-  4. kernel_fused  — the split-search kernel against its plain version at
+  4. kernel_hist   — the histogram kernel against its plain version at the
+                     batched engine's shapes (N = 90,000, F = 28, gh stats
+                     with a duplicated column, 5% inactive rows, n_nodes 1,
+                     8 and 32) and on edge cases (ragged N, code 255 in every
+                     column, every row inactive, one row, no row): the count
+                     channel equal, the other stats within the tolerance of
+                     ``check_hist_case``; two launches give the same bits.
+  5. kernel_fused  — the split-search kernel against its plain version at
                      the training shapes (N = 90,000, kf = 28, gh stats, every
                      frontier width W = 1 .. 64; class and moment stats at
                      N = 5,000) and on hostile inputs, under the tie rule of
                      ``check_fused_case``; three runs of the same inputs
                      must give the same bits.
-  5. train         — the default GBT trained on the card (counts reset just
-                     before, read just after: every level step launched the
-                     split-search kernel); a 4-tree run on 20,000 rows on the
-                     card against the same run on the CPU; and a traced
-                     20-tree run: seconds per span and the card's busy time.
-  6. serve_trained — the trained model's predictions for its 10,000
+  6. train         — the default GBT trained on the card with the device
+                     engine (counts reset just before, read just after: every
+                     level step launched the split-search kernel); a 4-tree
+                     run on 20,000 rows on the card against the same run on
+                     the CPU; and a traced 20-tree run: seconds per span and
+                     the card's busy time.
+  7. train_batched — the default GBT with no override: the batched engine,
+                     whose every histogram is built by the histogram kernel
+                     (counts reset just before, read just after: launches ==
+                     builds); the same card-against-CPU check (numpy backend
+                     on the CPU); a traced 20-tree run with the histogram
+                     build split into host-to-device copies, kernel time and
+                     device-to-host copies, and the card's idle share.
+  8. train_best_first — a few trees with BEST_FIRST_GLOBAL growth and RANDOM
+                     categorical splits on the Adult-like data: the kernel on
+                     row subsets and categorical codes (launches == builds),
+                     against the same run on the CPU with its plain version.
+  9. serve_trained — the trained model's predictions for its 10,000
                      validation rows through the CUDA traversal engine,
                      equal to ``predict_naive`` bit for bit.
-  7. serve         — a ``ForestServer`` with the default chain answers ~50
+ 10. serve         — a ``ForestServer`` with the default chain answers ~50
                      raw-column requests; every answer equals the host oracle
                      ``finalize(predict_naive(encode(batch)))``, every
                      dispatch went through the kernel engine, and the kernel
                      launched (counts reset just before, read just after).
-  8. timings       — per kernel: time per call (CUDA events around each call,
+ 11. timings       — per kernel: time per call (CUDA events around each call,
                      median of 20 after warm-up; the wrapper's host-side
                      checks fall inside the window), device time
-                     (torch.profiler), the plain version's time and the
-                     bound; the serve phase's latency and rows/s (a smoke
+                     (torch.profiler), the plain version's time, the bound
+                     and, for the histogram kernel, one ``index_add_`` over
+                     precomputed flat ids (the library call that computes
+                     its function); the serve phase's latency and rows/s (a smoke
                      reading over ~50 requests, server built before the clock
                      starts).
 
@@ -90,6 +112,15 @@ FUSED_TIMED_WIDTHS = (1, 64)
 FUSED_KERNELS = ("amax_kernel", "accumulate_kernel", "scan_kernel",
                  "reduce_kernel", "Memset")
 STRUCT_FIELDS = ("feature", "split_bin", "cat_mask", "left_child", "n_nodes")
+HIST_N, HIST_F, HIST_NODES = 90_000, 28, (1, 8, 32)
+HIST_TIMED_NODES = (8, 32)        # a middle level and the widest of depth 6
+HIST_KERNELS = ("amax_kernel", "accumulate_kernel", "convert_kernel",
+                "Memset")
+# kernel vs plain version: the kernel rounds an exact sum of fixed-point
+# values (each value quantized at 2^-45 of its stat's max |v|), the plain
+# version a float64 sum, both to float32
+HIST_RTOL, HIST_ATOL = 1e-6, 1e-6   # atol in units of the stat's max |v|
+BEST_FIRST_ROWS, BEST_FIRST_TREES = 3_000, 5
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -232,8 +263,8 @@ def build_kernels() -> dict:
     source, all started together, then load each library."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.forest_infer import forest_infer
-    from repro_torch.kernels.histogram import fused
-    modules = (forest_infer, fused)
+    from repro_torch.kernels.histogram import fused, histogram
+    modules = (forest_infer, fused, histogram)
     with ThreadPoolExecutor(len(modules)) as pool:
         results = list(pool.map(lambda m: _build.build(m.SOURCE), modules))
     for m in modules:
@@ -465,6 +496,75 @@ def check_fused(device) -> dict:
     return {"cases": cases, "max_abs_err": err}
 
 
+# ---------------------------------------------------- histogram (B3) checks
+
+def check_hist_case(codes, stats, node_of, n_nodes, runs=2) -> dict:
+    """The histogram kernel against its plain version on the same tensors:
+    the count channel (the last stat) equal, every other output within
+    HIST_RTOL * |plain| + HIST_ATOL * max |v_s| (max over the active rows of
+    stat s); ``runs`` launches give the same bits."""
+    import torch
+    from repro_torch.kernels.histogram.histogram import histogram
+    from repro_torch.kernels.histogram.ref import histogram_f32_ref
+    outs = [histogram(codes, stats, node_of, n_nodes) for _ in range(runs)]
+    got = outs[0]
+    for o in outs[1:]:
+        if not torch.equal(got, o):
+            raise AssertionError("histogram kernel: repeated launches on the "
+                                 "same inputs gave different outputs")
+    want = histogram_f32_ref(codes, stats, node_of, n_nodes)
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"histogram kernel gave {tuple(got.shape)} "
+                             f"{got.dtype}, plain {tuple(want.shape)}")
+    if not torch.equal(got[..., -1], want[..., -1]):
+        raise AssertionError(f"n_nodes={n_nodes}: the count channel differs")
+    active = node_of >= 0
+    amax = (stats[active].abs().amax(0) if bool(active.any())
+            else torch.zeros(stats.shape[1], device=stats.device))
+    diff = (got - want).abs()
+    tol = HIST_RTOL * want.abs() + HIST_ATOL * amax
+    if bool((diff > tol).any()):
+        raise AssertionError(f"n_nodes={n_nodes}: kernel vs plain differ by "
+                             f"{float(diff.max())} beyond the tolerance")
+    return {"rows": int(codes.shape[0]), "active": int(active.sum()),
+            "n_nodes": int(n_nodes),
+            "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "cells_differing": int((diff > 0).sum())}
+
+
+def check_hist(device) -> dict:
+    """B3 against its plain version at the batched engine's shapes and on
+    edge cases. Returns the cases' summaries and the largest error."""
+    import torch
+    from repro_torch.kernels.histogram import histogram
+    cases = {}
+    for k in HIST_NODES:
+        codes, stats, node_of = fused_inputs(HIST_N, HIST_F, k, "gh", 20 + k,
+                                             device)
+        codes[0] = 255                       # the top code in every column
+        cases[f"N={HIST_N} n_nodes={k}"] = check_hist_case(
+            codes, stats, node_of, k)
+    codes, stats, node_of = fused_inputs(4_999, HIST_F, 5, "gh", 21, device)
+    codes[:, 3] = 255
+    cases["ragged N=4999 n_nodes=5, column 3 all 255"] = check_hist_case(
+        codes, stats, node_of, 5)
+    r = cases["all rows inactive"] = check_hist_case(
+        codes, stats, torch.full_like(node_of, -1), 4)
+    if r["active"]:
+        raise AssertionError("inactive rows counted as active")
+    cases["N=1"] = check_hist_case(*fused_inputs(1, HIST_F, 1, "gh", 22, device,
+                                                 inactive=0.0), 1)
+    before = histogram.LAUNCHES
+    empty = histogram.histogram(codes[:0], stats[:0], node_of[:0], 1)
+    if histogram.LAUNCHES != before or bool(empty.any()):
+        raise AssertionError("a call with no rows launched or gave non-zeros")
+    for case in cases.values():
+        if not case["active"] and case["max_abs_err"]:
+            raise AssertionError("no active row, yet a non-zero histogram")
+    return {"cases": cases,
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
+
+
 # ------------------------------------------------------------- training
 
 def higgs_like(n: int = HIGGS["n"]) -> dict:
@@ -473,12 +573,18 @@ def higgs_like(n: int = HIGGS["n"]) -> dict:
     return make_dataset(SyntheticSpec(**{**HIGGS, "n": n}))
 
 
-def train_gbt(data: dict, device, **hparams):
-    """The default GBT with the device growth engine, trained on ``device``."""
+def train_default(data: dict, device, label: str = "label", **hparams):
+    """The default GBT (batched engine, histogram_backend "auto": the CUDA
+    histogram kernel on a CUDA device, numpy on the CPU), trained on
+    ``device``."""
     from repro_torch.core.gbt import GradientBoostedTreesLearner
     return GradientBoostedTreesLearner(
-        label="label", seed=LEARNER_SEED, device=device,
-        growth_engine="device", **hparams).train(data)
+        label=label, seed=LEARNER_SEED, device=device, **hparams).train(data)
+
+
+def train_gbt(data: dict, device, **hparams):
+    """The default GBT with the device growth engine, trained on ``device``."""
+    return train_default(data, device, growth_engine="device", **hparams)
 
 
 def validation_rows(data: dict) -> dict:
@@ -490,21 +596,27 @@ def validation_rows(data: dict) -> dict:
     return {k: v[valid] for k, v in data.items()}
 
 
-def compare_card_and_cpu(device) -> dict:
-    """A 4-tree run on the card against the same run on the CPU (the
-    kernel's plain version): >= 99.5% of each structure field agrees, and
-    predictions agree to 1e-4. A second card run gives the same forest bit
-    for bit (the split search and the segment sums are exact on the card)."""
+def agreement(a, b) -> dict:
+    """Share of equal entries of each structure field of two forests."""
+    return {k: float((getattr(a.forest, k) == getattr(b.forest, k)).mean())
+            for k in STRUCT_FIELDS}
+
+
+def compare_card_and_cpu(device, fit=train_gbt) -> dict:
+    """A 4-tree ``fit`` run on the card against the same run on the CPU (the
+    kernels' plain versions, or numpy for the batched engine): >= 99.5% of
+    each structure field agrees, and predictions agree to 1e-4. A second
+    card run gives the same forest bit for bit (the kernels' sums and the
+    device engine's segment sums are exact on the card)."""
     data = higgs_like(COMPARE_ROWS)
-    card = train_gbt(data, device, num_trees=COMPARE_TREES)
-    again = train_gbt(data, device, num_trees=COMPARE_TREES)
-    cpu = train_gbt(data, "cpu", num_trees=COMPARE_TREES)
+    card = fit(data, device, num_trees=COMPARE_TREES)
+    again = fit(data, device, num_trees=COMPARE_TREES)
+    cpu = fit(data, "cpu", num_trees=COMPARE_TREES)
     repeat = all(np.array_equal(getattr(card.forest, k), getattr(again.forest, k))
                  for k in STRUCT_FIELDS + ("leaf_value", "threshold"))
     if not repeat:
         raise AssertionError("two card runs of the same training differ")
-    agree = {k: float((getattr(card.forest, k) == getattr(cpu.forest, k)).mean())
-             for k in STRUCT_FIELDS}
+    agree = agreement(card, cpu)
     low = {k: v for k, v in agree.items() if v < 0.995}
     if low:
         raise AssertionError(f"card vs CPU structure agrees only {low}")
@@ -518,12 +630,17 @@ def compare_card_and_cpu(device) -> dict:
             "pred_max_abs_diff": diff, "card_runs_identical": repeat}
 
 
-def profile_training(data: dict, device, n_trees: int = PROFILE_TREES) -> dict:
-    """Where a training run's time goes: a traced ``n_trees`` run of the
-    default GBT, with seconds per span (the repro_torch.obs tracer; while
-    tracing, the level-step span closes after a CUDA sync, so it holds the
-    level's device time) and the card's busy time (torch.profiler: the sum
-    of every kernel, copy and memset over the run)."""
+def profile_training(data: dict, device, fit=train_gbt,
+                     kernels: tuple = FUSED_KERNELS,
+                     n_trees: int = PROFILE_TREES) -> dict:
+    """Where a training run's time goes: a traced ``n_trees`` ``fit`` run,
+    with seconds per span (the repro_torch.obs tracer; while tracing, the
+    device engine's level-step span closes after a CUDA sync, and the
+    batched engine's histogram build ends in its device-to-host copy, so
+    each holds its device time) and the card's busy time (torch.profiler:
+    the sum of every kernel, copy and memset over the run), split into
+    host-to-device copies, device-to-host copies and the path's kernel
+    (the device activities whose names contain one of ``kernels``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs import clock, trace
@@ -531,17 +648,22 @@ def profile_training(data: dict, device, n_trees: int = PROFILE_TREES) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         with trace.capture() as tracer:
             t0 = clock.perf()
-            train_gbt(data, device, num_trees=n_trees,
-                      early_stopping="NONE")
+            fit(data, device, num_trees=n_trees, early_stopping="NONE")
             wall = clock.perf() - t0
         torch.cuda.synchronize()
     phases = {name: {"count": int(d["count"]), "total_s": d["total_s"]}
               for name, d in phase_summary(tracer).items()}
-    busy_ms = sum(getattr(ev, "device_time_total", 0.0)
-                  for ev in prof.key_averages()) / 1e3
+    events = [(ev.key, getattr(ev, "device_time_total", 0.0) / 1e3)
+              for ev in prof.key_averages()]
+    busy_ms = sum(ms for _, ms in events)
     trees_s = phases["gbt/tree"]["total_s"]
     return {"trees": n_trees, "wall_s": wall, "phases": phases,
             "device_busy_ms": busy_ms,
+            "device_ms": {
+                "h2d_copies": sum(ms for k, ms in events if "HtoD" in k),
+                "d2h_copies": sum(ms for k, ms in events if "DtoH" in k),
+                "kernel": sum(ms for k, ms in events
+                              if any(n in k for n in kernels))},
             # the wall includes the host's data preparation
             "device_idle_share_of_wall": 1.0 - busy_ms / 1e3 / wall,
             "device_idle_share_of_tree_spans": 1.0 - busy_ms / 1e3 / trees_s}
@@ -692,6 +814,101 @@ def time_fused(device) -> dict:
     return out
 
 
+def hist_bound(codes, stats, node_of, n_nodes) -> dict:
+    """The least time the card could take for one histogram build: the
+    bytes it must move (codes N * F, stats N * S * 4 and node ids N * 4 read
+    once, the float32 output n_nodes * F * 256 * S * 4 written once) over
+    HBM bandwidth, against its operations (one add per active row, column
+    and stat) over the fp32 peak."""
+    N, F = codes.shape
+    S = stats.shape[1]
+    active = int((node_of >= 0).sum())
+    nbytes = (codes.numel() + stats.numel() * 4 + node_of.numel() * 4
+              + n_nodes * F * 256 * S * 4)
+    ops = active * F * S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_hist(device) -> dict:
+    """B3, its plain version and the library call at the batched engine's
+    shape (N = 90,000, F = 28, gh stats) for a middle and the widest level.
+    The library call is one ``index_add_`` of the rows' stats over flat
+    (node, feature, code) ids computed beforehand (inactive rows to a sink
+    row), as the plain version does it; only that call is timed."""
+    import torch
+    from repro_torch.kernels.histogram.histogram import histogram
+    from repro_torch.kernels.histogram.ref import histogram_f32_ref
+    out = {}
+    for k in HIST_TIMED_NODES:
+        codes, stats, node_of = fused_inputs(HIST_N, HIST_F, k, "gh", 300 + k,
+                                             device)
+        N, F = codes.shape
+        S = stats.shape[1]
+        node = node_of.long()
+        seg = ((node.clamp(min=0)[:, None] * F
+                + torch.arange(F, device=device)[None]) * 256 + codes.long())
+        seg = torch.where((node >= 0)[:, None], seg, k * F * 256).reshape(-1)
+        vals = stats[:, None, :].expand(N, F, S).reshape(N * F, S).contiguous()
+        flat = torch.zeros((k * F * 256 + 1, S), device=device)
+        kernel = lambda: histogram(codes, stats, node_of, k)
+        row = {"kernel_ms": device_ms(kernel),
+               "kernel_device_ms": profiled_ms(kernel, HIST_KERNELS),
+               "plain_ms": device_ms(
+                   lambda: histogram_f32_ref(codes, stats, node_of, k)),
+               "library_ms": device_ms(lambda: flat.index_add_(0, seg, vals))}
+        row.update(hist_bound(codes, stats, node_of, k))
+        out[k] = row
+    return out
+
+
+def train_best_first(device, backend) -> dict:
+    """A few trees of BEST_FIRST_GLOBAL growth with RANDOM categorical
+    splits on the Adult-like data: the batched engine builds one histogram
+    per evaluated leaf over its row subset, categorical codes included.
+    The same run on the CPU with the kernel's plain version
+    (histogram_backend="torch": the same float32 stats, both children built)
+    agrees on >= 99.5% of each structure field. Against the CPU's numpy
+    backend (float64 stats, siblings by subtraction) the agreement is only
+    reported: there, 1-ulp differences in float32 histograms reorder the
+    best-first heap and flip RANDOM trials, and the boosted trees diverge."""
+    from repro_torch.data.tabular import adult_like
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.obs import clock
+    data = adult_like(BEST_FIRST_ROWS, seed=SEED)
+    kw = dict(label="income", num_trees=BEST_FIRST_TREES,
+              growing_strategy="BEST_FIRST_GLOBAL",
+              categorical_algorithm="RANDOM")
+    histogram.LAUNCHES = 0               # the best-first run starts here
+    backend.builds = 0
+    t0 = clock.perf()
+    card = train_default(data, device, **kw)
+    seconds = clock.perf() - t0
+    launches, builds = histogram.LAUNCHES, backend.builds   # ... ends here
+    logs = card.training_logs
+    if logs["growth_engine"] != "batched" or logs["histogram_backend"] != "cuda":
+        raise AssertionError(f"best-first trained with {logs['growth_engine']}"
+                             f" / {logs.get('histogram_backend')}")
+    if builds <= 0 or launches != builds:
+        raise AssertionError(f"{builds} histogram builds made {launches} "
+                             "kernel launches")
+    plain = agreement(card, train_default(data, "cpu", histogram_backend="torch",
+                                          **kw))
+    low = {k: v for k, v in plain.items() if v < 0.995}
+    if low:
+        raise AssertionError(f"best-first card vs CPU (plain version) "
+                             f"structure agrees only {low}")
+    return {"rows": BEST_FIRST_ROWS, "trees_grown": len(logs["train_loss"]),
+            "trees_kept": card.forest.n_trees, "seconds": seconds,
+            "builds": builds, "launches": launches,
+            "nodes": int(card.forest.n_nodes.sum()),
+            "card_vs_cpu_plain_agree": plain,
+            "card_vs_cpu_numpy_agree": agreement(
+                card, train_default(data, "cpu", **kw)),
+            "valid_accuracy": card.self_evaluation["accuracy"]}
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -706,8 +923,9 @@ def main() -> int:
               "the port on a GPU and has nothing to run here.", file=sys.stderr)
         return 1
     from repro_torch.core import grower_device
+    from repro_torch.core.hist_backend import resolve_backend
     from repro_torch.kernels.forest_infer import forest_infer
-    from repro_torch.kernels.histogram import fused
+    from repro_torch.kernels.histogram import fused, histogram
     from repro_torch.obs import clock
     device = torch.device("cuda")
     card = nvidia_smi()
@@ -727,6 +945,11 @@ def main() -> int:
     if forest_infer.LAUNCHES <= 0:
         raise AssertionError("the kernel check made no kernel launch")
     emit(phase="kernel", **kern, launches=forest_infer.LAUNCHES)
+
+    hist_check = check_hist(device)
+    if histogram.LAUNCHES <= 0:
+        raise AssertionError("the histogram check made no kernel launch")
+    emit(phase="kernel_hist", **hist_check, launches=histogram.LAUNCHES)
 
     fused_check = check_fused(device)
     emit(phase="kernel_fused", **fused_check, launches=fused.LAUNCHES)
@@ -760,6 +983,38 @@ def main() -> int:
          card_vs_cpu=compare_card_and_cpu(device),
          profile=profile_training(data, device))
 
+    # the default learner: the batched engine, "auto" is the CUDA backend
+    backend = resolve_backend("auto", device)
+    if backend.name != "cuda":
+        raise AssertionError(f"auto resolves to {backend.name!r}, not 'cuda'")
+    histogram.LAUNCHES = 0               # the batched training run starts here
+    backend.builds = 0
+    t0 = clock.perf()
+    batched = train_default(data, device)
+    batched_s = clock.perf() - t0
+    batched_launches = histogram.LAUNCHES  # ... and ends here
+    builds = backend.builds
+    blogs = batched.training_logs
+    if (blogs["growth_engine"], blogs["engine_fallback"],
+            blogs["histogram_backend"]) != ("batched", None, "cuda"):
+        raise AssertionError(f"trained with {blogs['growth_engine']} / "
+                             f"{blogs['engine_fallback']} / "
+                             f"{blogs.get('histogram_backend')}")
+    if builds <= 0 or batched_launches != builds:
+        raise AssertionError(f"{builds} histogram builds made "
+                             f"{batched_launches} kernel launches")
+    bkept = batched.forest.n_trees
+    emit(phase="train_batched", rows=len(data["label"]), seconds=batched_s,
+         trees_grown=len(blogs["train_loss"]), trees_kept=bkept,
+         builds=builds, launches=batched_launches,
+         valid_loss=blogs["valid_loss"][bkept - 1],
+         valid_accuracy=batched.self_evaluation["accuracy"],
+         card_vs_cpu=compare_card_and_cpu(device, fit=train_default),
+         profile=profile_training(data, device, fit=train_default,
+                                  kernels=HIST_KERNELS))
+
+    emit(phase="train_best_first", **train_best_first(device, backend))
+
     forest_infer.LAUNCHES = 0            # serving the trained model
     served = serve_trained(trained, valid, device)
     trained_launches = forest_infer.LAUNCHES
@@ -778,8 +1033,10 @@ def main() -> int:
 
     timings = time_kernel(model, device)
     fused_t = time_fused(device)
+    hist_t = time_hist(device)
     emit(phase="timings", card=card, **{f"N={n}": row for n, row in timings.items()},
          **{f"fused W={w}": row for w, row in fused_t.items()},
+         **{f"hist n_nodes={k}": row for k, row in hist_t.items()},
          server_p50_ms=stats["p50_ms"], server_p99_ms=stats["p99_ms"],
          server_rows_per_s=stats["rows_per_s"])
 
@@ -787,6 +1044,8 @@ def main() -> int:
     t = timings[main_n]
     main_w = FUSED_TIMED_WIDTHS[-1]   # the widest level of a depth-6 tree
     f = fused_t[main_w]
+    main_k = HIST_TIMED_NODES[-1]     # the widest level of a depth-6 tree
+    h = hist_t[main_k]
     print(json.dumps({"kernels": [{
         "name": "forest_infer_tiled",
         "route": "cuda",
@@ -811,6 +1070,18 @@ def main() -> int:
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": None,
         "shape": f"N={FUSED_N}, kf={FUSED_KF}, S=4 (gh), W={main_w}",
+    }, {
+        "name": "histogram",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
+        "replaces": "src/repro/kernels/histogram/histogram.py:61",
+        "launches": batched_launches,
+        "max_abs_err": hist_check["max_abs_err"],
+        "ms": h["kernel_ms"], "device_ms": h["kernel_device_ms"],
+        "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": h["library_ms"],
+        "shape": f"N={HIST_N}, F={HIST_F}, S=4 (gh), n_nodes={main_k}",
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

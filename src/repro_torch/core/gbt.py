@@ -2,16 +2,19 @@
 ``repro.core.gbt``: paper App. C.1 defaults, LOSS_INCREASE early stopping
 on a self-extracted validation set (§3.3), deterministic training.
 
-Trees grow on the device growth engine (core/grower_device.py) on the
-learner's ``device``: None is cuda, where the split search is the
-hand-written CUDA kernel; ``device="cpu"`` runs its plain PyTorch version.
-The boosting loop around it is host numpy, as in the reference: gradients,
+Trees grow through the reference's engines (core/grower.py) on the
+learner's ``device`` (None is cuda). The default, "batched", builds every
+histogram with the hand-written CUDA histogram kernel on a CUDA device and
+with numpy on the CPU (``histogram_backend="auto"``); "device" runs the
+level loop on the device with the fused split-search kernel (its plain
+PyTorch version on the CPU); "oracle" is the host ground truth. The
+boosting loop around them is host numpy, as in the reference: gradients,
 leaf values, the validation predictions and the loss values. The trained
 ``GradientBoostedTreesModel`` serves through the port's engines.
 
-Not ported yet: the host engines (``growth_engine`` "batched" and "oracle",
-ROADMAP A9), the checkpoint seam (a non-None ``checkpoint`` raises) and the
-ranking task.
+Not ported yet: sparse-oblique splits (``split_axis="SPARSE_OBLIQUE"`` and
+the benchmark_rank1 template raise), the checkpoint seam (a non-None
+``checkpoint`` raises) and the ranking task.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.core.api import Learner, Task, YdfError, register_learner
 from repro_torch.core.evaluation import evaluate_predictions
 from repro_torch.core.grower import GrowthParams, grow_tree, resolve_engine
 from repro_torch.core.grower_device import _resolve_impl
+from repro_torch.core.hist_backend import resolve_backend
 from repro_torch.core.hparams import GBTHparams
 from repro_torch.core.losses import make_loss
 from repro_torch.core.models import (
@@ -102,11 +106,18 @@ class GradientBoostedTreesLearner(Learner):
         gp = GrowthParams(max_depth=hp.max_depth, max_nodes=max_nodes,
                           growing_strategy=hp.growing_strategy, splitter=sp,
                           engine=hp.growth_engine,
+                          histogram_backend=hp.histogram_backend,
                           sampling_key=self.seed & 0xFFFFFFFF,
                           device=str(device))
-        engine_used, _ = resolve_engine(gp, td.binned, oblique)
-        device_impl = _resolve_impl(gp.device_impl, bool(td.binned.is_cat.any()),
-                                    device)
+        engine_used, engine_fallback = resolve_engine(gp, td.binned, oblique)
+        if engine_used == "device":
+            impl = {"device_impl": _resolve_impl(
+                gp.device_impl, bool(td.binned.is_cat.any()), device)}
+        elif engine_used == "batched":
+            impl = {"histogram_backend": resolve_backend(
+                gp.histogram_backend, device).name}
+        else:
+            impl = {}
         shrink, l2 = hp.shrinkage, hp.l2_regularization
 
         def leaf_fn(s):
@@ -132,8 +143,9 @@ class GradientBoostedTreesLearner(Learner):
                     bag,
                 ], axis=1).astype(np.float64)
                 with trace.span("gbt/tree", tree=t, iteration=it):
-                    node_of = grow_tree(forest, t, sub_td.binned, stats,
-                                        bag > 0, leaf_fn, gp)
+                    node_of = grow_tree(forest, t, sub_td.binned,
+                                        sub_td.X_raw, stats, bag > 0,
+                                        leaf_fn, gp, rng)
                 vals = forest.leaf_value[t, np.maximum(node_of, 0), 0]
                 upd = np.where(node_of >= 0, vals, 0.0)
                 if hp.subsample < 1.0:  # OOB examples still move (predict path)
@@ -171,9 +183,9 @@ class GradientBoostedTreesLearner(Learner):
             self_evaluation=self_eval)
         model.training_logs = build_training_logs(
             learner="gbt", num_trees=forest.n_trees // K,
-            growth_engine=engine_used, engine_fallback=None,
+            growth_engine=engine_used, engine_fallback=engine_fallback,
             extra={"train_loss": train_losses, "valid_loss": valid_losses,
-                   "device": str(device), "device_impl": device_impl})
+                   "device": str(device), **impl})
         return model
 
 

@@ -36,7 +36,7 @@ class GBTHparams:
     max_bins: int = 255
     loss: str = "DEFAULT"                   # DEFAULT | BINOMIAL | MULTINOMIAL | SQUARED_ERROR
     growth_engine: str = "batched"          # batched | oracle | device (§6)
-    histogram_backend: str = "auto"         # auto | numpy | pallas
+    histogram_backend: str = "auto"         # auto | numpy | simple | cuda | torch
     # -- ranking (task=RANKING, DESIGN.md §12.1): LambdaMART pairwise loss
     ranking_group: str = "group"            # group/query column name
     ndcg_truncation: int = 5                # the k in the |ΔNDCG@k| weights

@@ -7,8 +7,10 @@ at the root of the checkout:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so <src>
 
-The library's name carries a hash of the source and the flags, so an edited
-source is rebuilt and processes that share the checkout reuse one build.
+The library's name carries a hash of the source, the headers beside it
+(``csrc/*.cuh``, which a source may include) and the flags, so an edited
+source or header is rebuilt and processes that share the checkout reuse one
+build.
 Each kernel's wrapper loads its library with ``ctypes.CDLL`` once per
 process. Nothing here runs at import time. A failed build raises ``RuntimeError``
 with nvcc's output: a kernel that does not build is a fault of the
@@ -57,8 +59,11 @@ def build(source: Path) -> BuildResult:
     """Compile ``source`` into a shared library (reusing an identical
     earlier build). Raises RuntimeError when nvcc fails."""
     source = Path(source)
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{digest}.so"
     if lib.is_file():
         return BuildResult(lib, 0.0, "")

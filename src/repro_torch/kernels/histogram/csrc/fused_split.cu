@@ -17,28 +17,20 @@
 // Design. The TPU kernel builds histograms as one-hot MXU matmuls, because
 // a TPU has no scatter, and takes prefix sums as an upper-triangular matmul.
 // A GPU has both, so this is four small launches:
-//   1. amax:       per-stat max |v| over active rows (atomicMax on float
-//                  bits, order-free), which sets a power-of-two fixed-point
-//                  scale per stat.
-//   2. accumulate: grid (column, slot chunk, row split). A block adds its
-//                  rows' stats, as 64-bit fixed-point integers, into a
-//                  (slot chunk, 256, S) histogram in shared memory, then
-//                  adds the non-zero cells into a (W, kf, 256, S) int64
-//                  buffer in global memory (14.7 MB at W = 64, kf = 28,
-//                  S = 4: it stays in the 50 MB L2).
+//   1. amax and
+//   2. accumulate: the exact 64-bit fixed-point histogram of
+//                  hist_accumulate.cuh (shared with histogram.cu), into a
+//                  (W, kf, 256, S) int64 buffer in global memory (14.7 MB
+//                  at W = 64, kf = 28, S = 4: it stays in the 50 MB L2).
 //   3. scan:       one block of 256 threads per (column, slot): an exact
 //                  int64 prefix scan over the bins per stat, the gains in
 //                  float32 from the exact sums, and the block argmax.
 //   4. reduce:     one thread per slot folds the columns in order.
 //
-// Determinism. Float atomics add in an order that changes from run to run,
-// and then duplicate columns stop tying exactly and near-ties flip split
-// structure. Integer addition is associative, so every sum here is exact
-// and independent of order: two launches on the same inputs give the same
-// bits, and the count channel is exact. Stat s is scaled by
-// 2^(62 - e_s - ceil(log2(N + 1))), where max |v_s| < 2^e_s, so no sum of
-// N rows can overflow int64 and each value keeps ~45 bits below the largest
-// (float32 accumulation keeps 24). The stats must be finite.
+// Determinism. Every sum is exact and independent of order
+// (hist_accumulate.cuh): two launches on the same inputs give the same
+// bits, duplicate columns tie exactly, and near-ties do not flip from run
+// to run.
 //
 // What bounds it on an H100: the bytes it must read (codes N * kf, stats
 // N * S * 4, slot N * 4; 4.3 MB at N = 90,000, kf = 28, S = 4, about 1.3 us
@@ -48,27 +40,12 @@
 // chunks, codes read 16 bytes at a time, and fusing the scan into the
 // accumulate blocks.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hist_accumulate.cuh"
 
 namespace {
 
-constexpr int kBins = 256;
-constexpr int kMaxStats = 16;
-constexpr int kThreads = 256;
-constexpr int kSharedBudget = 96 * 1024;
-constexpr int kTargetBlocks = 4 * 132;
 constexpr float kNegInf = -1e30f;
 constexpr int kGH = 0, kClass = 1, kMoment = 2;
-
-// Fixed-point scale of a stat whose max |v| has the float bits `bits`.
-__device__ __forceinline__ double stat_scale(unsigned bits, int n_log2) {
-  const float m = __uint_as_float(bits);
-  if (!(m > 0.0f)) return 1.0;
-  int e;
-  frexpf(m, &e);  // m < 2^e
-  return ldexp(1.0, 62 - e - n_log2);
-}
 
 // score(x) of a stat vector whose count (its last stat) is n.
 __device__ __forceinline__ float score(const float* x, float n, int S,
@@ -94,75 +71,6 @@ __device__ __forceinline__ bool ranks_before(float ga, int ia, float gb,
   if (na != nb) return na;
   if (!na && ga != gb) return ga > gb;
   return ia < ib;
-}
-
-__global__ void amax_kernel(const float* __restrict__ stats,
-                            const int* __restrict__ slot_of, int N, int S,
-                            unsigned* __restrict__ amax_bits) {
-  float m[kMaxStats];
-#pragma unroll
-  for (int s = 0; s < kMaxStats; ++s) m[s] = 0.0f;
-  for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < N;
-       r += (long long)gridDim.x * blockDim.x) {
-    if (slot_of[r] < 0) continue;
-#pragma unroll
-    for (int s = 0; s < kMaxStats; ++s)
-      if (s < S) m[s] = fmaxf(m[s], fabsf(stats[r * S + s]));
-  }
-#pragma unroll
-  for (int s = 0; s < kMaxStats; ++s) {
-    if (s >= S) break;
-    float v = m[s];
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if ((threadIdx.x & 31) == 0) atomicMax(amax_bits + s, __float_as_uint(v));
-  }
-}
-
-__global__ void accumulate_kernel(const uint8_t* __restrict__ codes,
-                                  const float* __restrict__ stats,
-                                  const int* __restrict__ slot_of, int N,
-                                  int kf, int S, int W, int n_bins,
-                                  int w_chunk, long long rows_per_block,
-                                  int n_log2,
-                                  const unsigned* __restrict__ amax_bits,
-                                  unsigned long long* __restrict__ hist) {
-  extern __shared__ unsigned long long sh[];  // [w_chunk][256][S]
-  const int f = blockIdx.x;
-  const int c0 = blockIdx.y * w_chunk;
-  const int wc = min(w_chunk, W - c0);
-  const long long r0 = blockIdx.z * rows_per_block;
-  const long long r1 = min((long long)N, r0 + rows_per_block);
-  const int cells = wc * kBins * S;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = 0ull;
-  double scale[kMaxStats];
-#pragma unroll
-  for (int s = 0; s < kMaxStats; ++s)
-    scale[s] = s < S ? stat_scale(amax_bits[s], n_log2) : 1.0;
-  __syncthreads();
-
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int w = slot_of[r] - c0;
-    if (w < 0 || w >= wc) continue;
-    const int code = codes[r * kf + f];
-    if (code >= n_bins) continue;
-    unsigned long long* cell = sh + ((long long)w * kBins + code) * S;
-    const float* v = stats + r * S;
-#pragma unroll
-    for (int s = 0; s < kMaxStats; ++s)
-      if (s < S)
-        atomicAdd(cell + s, static_cast<unsigned long long>(
-                                __double2ll_rn((double)v[s] * scale[s])));
-  }
-  __syncthreads();
-
-  const long long row = (long long)kBins * S;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const unsigned long long v = sh[i];
-    if (v == 0ull) continue;
-    const int w = i / row;
-    atomicAdd(hist + ((long long)(c0 + w) * kf + f) * row + (i - w * row), v);
-  }
 }
 
 __global__ void scan_kernel(const long long* __restrict__ hist, int kf, int S,
@@ -278,31 +186,11 @@ extern "C" int fused_split(const uint8_t* codes, const float* stats,
   cudaError_t err = cudaMemsetAsync(scratch, 0,
                                     fused_split_scratch_bytes(kf, S, W), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int n_log2 = 0;
-  while ((1ll << n_log2) <= (long long)N) ++n_log2;  // N < 2^n_log2
-
+  const int n_log2 = rows_log2(N);  // N < 2^n_log2
   if (N > 0) {
-    const int amax_blocks = min((N + kThreads - 1) / kThreads, 2 * 132);
-    amax_kernel<<<amax_blocks, kThreads, 0, st>>>(stats, slot_of, N, S, amax);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-    const int slot_bytes = kBins * S * 8;
-    const int w_chunk = max(1, min(W, kSharedBudget / slot_bytes));
-    const int n_chunks = (W + w_chunk - 1) / w_chunk;
-    const long long max_splits = ((long long)N + kThreads - 1) / kThreads;
-    const long long want = (kTargetBlocks + (long long)kf * n_chunks - 1) /
-                           ((long long)kf * n_chunks);
-    const int splits = (int)max(1ll, min(min(want, max_splits), 65535ll));
-    const long long rows_per_block = ((long long)N + splits - 1) / splits;
-    const int smem = w_chunk * slot_bytes;
-    err = cudaFuncSetAttribute(accumulate_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = accumulate(codes, stats, slot_of, N, kf, S, W, n_bins, n_log2, amax,
+                     hist, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    accumulate_kernel<<<dim3(kf, n_chunks, splits), kThreads, smem, st>>>(
-        codes, stats, slot_of, N, kf, S, W, n_bins, w_chunk, rows_per_block,
-        n_log2, amax, hist);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
 
   scan_kernel<<<dim3(kf, W), kThreads, 0, st>>>(

@@ -1,10 +1,13 @@
-"""Plain PyTorch histogram and fused split search: the oracle for the CUDA
-kernel (``fused.py``), and what its wrapper runs on CPU tensors.
+"""Plain PyTorch histograms and fused split search: the oracles for the CUDA
+kernels (``histogram.py``, ``fused.py``), and what their wrappers run on CPU
+tensors.
 
 hist[n, f, b, s] = sum over rows i with node_of[i] == n and codes[i, f] == b
 of stats[i, s], accumulated in the stats' dtype with ``index_add_`` over
 flat ``(node * F + f) * B + code`` ids (rows with node -1, and codes >= B,
-add nothing). ``fused_split_ref`` sums in float64 and scores in float32,
+add nothing). ``histogram_f32_ref`` sums in float64 and returns float32, the
+dtype of the reference op, as the histogram kernel rounds its exact sums.
+``fused_split_ref`` sums in float64 and scores in float32,
 as the kernel scores float32 values of exact sums; it follows the TPU
 kernel's rules, not the jnp oracle's, where the two differ: the best bin is taken per column (a NaN gain
 ranks highest, as ``argmax`` ranks it, and makes the column's best NaN),
@@ -36,6 +39,15 @@ def histogram_ref(codes: torch.Tensor, stats: torch.Tensor,
     flat.index_add_(0, seg.reshape(-1),
                     stats[:, None, :].expand(N, F, S).reshape(N * F, S))
     return flat[:sink].reshape(n_nodes, F, B, S)
+
+
+def histogram_f32_ref(codes: torch.Tensor, stats: torch.Tensor,
+                      node_of: torch.Tensor, n_nodes: int,
+                      n_bins: int = 256) -> torch.Tensor:
+    """The histogram kernel's plain version: (n_nodes, F, n_bins, S) float32,
+    the rounding of float64 sums of the stats' values."""
+    return histogram_ref(codes, stats.to(torch.float64), node_of, n_nodes,
+                         n_bins).to(torch.float32)
 
 
 def fused_split_ref(codes: torch.Tensor, stats: torch.Tensor,

@@ -11,7 +11,9 @@ dependencies are installed. Tolerances: the traversal kernel none
 split-search kernel the tie rule of ``chip_smoke.check_fused_case`` (gain
 within REL_GAIN_EPS * |score(parent)| + 1e-6 * |gain| of the plain
 version's, the same split wherever the plain runner-up is clearly below),
-and the same bits over three launches.
+and the same bits over three launches; the histogram kernel the rule of
+``chip_smoke.check_hist_case`` (the count channel equal, the rest within
+rtol 1e-6 + 1e-6 * the stat's max |v|), and the same bits over launches.
 """
 from __future__ import annotations
 
@@ -175,6 +177,73 @@ def test_training_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
     rows = {k: v[:500] for k, v in data.items() if k != "label"}
     from repro_torch.core.dataspec import BatchEncoder
     from repro_torch.core.tree import predict_naive
+    X = BatchEncoder(model.spec, model.features).encode(rows)
+    want = model._compile_finalize()(predict_naive(model.forest, X))
+    assert np.array_equal(model.predict(rows, engine="cuda", device=cuda), want)
+
+
+# ------------------------------------------------------- histogram (B3)
+
+def _refuse(*a, **k):
+    raise AssertionError("a CUDA tensor reached the plain version")
+
+
+@pytest.mark.parametrize("n,n_nodes", [(90_000, 1), (90_000, 8),
+                                       (90_000, 32), (4_999, 5), (1, 1)])
+def test_histogram_kernel_matches_plain_version(cuda, n, n_nodes):
+    import chip_smoke
+    codes, stats, node_of = chip_smoke.fused_inputs(n, 28, n_nodes, "gh",
+                                                    seed=n + n_nodes,
+                                                    device=cuda)
+    codes[0] = 255
+    r = chip_smoke.check_hist_case(codes, stats, node_of, n_nodes)
+    assert r["n_nodes"] == n_nodes and r["active"] > 0
+
+
+def test_histogram_kernel_repeats_its_bits(cuda):
+    import chip_smoke
+    from repro_torch.kernels.histogram.histogram import histogram
+    args = chip_smoke.fused_inputs(90_000, 28, 12, "gh", seed=3, device=cuda)
+    outs = [histogram(*args, 12) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_histogram_counts_launches_and_never_takes_the_plain_version(
+        cuda, monkeypatch):
+    import chip_smoke
+    from repro_torch.kernels.histogram import histogram, ops
+    monkeypatch.setattr(histogram, "histogram_f32_ref", _refuse)
+    args = chip_smoke.fused_inputs(1000, 5, 4, "gh", seed=1, device=cuda)
+    before = histogram.LAUNCHES
+    histogram.histogram(*args, 4)
+    ops.histogram(*args, 4)
+    ops.histogram(*args, 4, impl="cuda")
+    torch.cuda.synchronize()
+    assert histogram.LAUNCHES == before + 3
+    empty = histogram.histogram(*(a[:0] for a in args), 4)
+    assert histogram.LAUNCHES == before + 3 and not bool(empty.any())
+
+
+def test_default_gbt_on_the_card_builds_every_histogram_with_the_kernel(
+        cuda, monkeypatch):
+    import chip_smoke
+    from repro_torch.core.dataspec import BatchEncoder
+    from repro_torch.core.hist_backend import resolve_backend
+    from repro_torch.core.tree import predict_naive
+    from repro_torch.kernels.histogram import histogram
+    monkeypatch.setattr(histogram, "histogram_f32_ref", _refuse)
+    backend = resolve_backend("auto", cuda)
+    assert backend.name == "cuda"
+    data = chip_smoke.higgs_like(5_000)
+    launches, builds = histogram.LAUNCHES, backend.builds
+    model = chip_smoke.train_default(data, cuda, num_trees=3)
+    logs = model.training_logs
+    assert logs["growth_engine"] == "batched"
+    assert logs["histogram_backend"] == "cuda"
+    builds = backend.builds - builds
+    assert builds > 0 and histogram.LAUNCHES - launches == builds
+    rows = {k: v[:500] for k, v in data.items() if k != "label"}
     X = BatchEncoder(model.spec, model.features).encode(rows)
     want = model._compile_finalize()(predict_naive(model.forest, X))
     assert np.array_equal(model.predict(rows, engine="cuda", device=cuda), want)

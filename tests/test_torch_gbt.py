@@ -126,18 +126,36 @@ def test_port_dataset_copy_equals_reference():
         np.testing.assert_array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(), "not have yet"),                          # default: batched
-    (dict(growth_engine="oracle"), "not have yet"),
-    (dict(growth_engine="device", growing_strategy="BEST_FIRST_GLOBAL"),
-     "BEST_FIRST"),
-    (dict(growth_engine="device", num_trees=0, warp=1), "Unknown hyper"),
+# The ids are those of the cases when the port had no host engines and the
+# first three raised; they now train as the reference does.
+@pytest.mark.parametrize("kw,want", [
+    pytest.param(dict(), ("batched", None), id="kw0-not have yet"),  # default
+    pytest.param(dict(growth_engine="oracle"), ("oracle", None),
+                 id="kw1-not have yet"),
+    pytest.param(dict(growth_engine="device",
+                      growing_strategy="BEST_FIRST_GLOBAL"),
+                 ("batched", "BEST_FIRST"), id="kw2-BEST_FIRST"),
+    pytest.param(dict(growth_engine="device", num_trees=0, warp=1),
+                 "Unknown hyper", id="kw3-Unknown hyper"),
 ])
-def test_unported_options_raise(adult, kw, match):
+def test_unported_options_raise(adult, kw, want):
+    """The engine that trains and the fallback reason the learner records
+    are the reference's; an unknown hyper-parameter raises."""
     train, _ = adult
-    with pytest.raises(YdfError, match=match):
-        GradientBoostedTreesLearner(label="income", device="cpu",
-                                    **kw).train(train)
+    if isinstance(want, str):
+        with pytest.raises(YdfError, match=want):
+            GradientBoostedTreesLearner(label="income", device="cpu",
+                                        **kw).train(train)
+        return
+    kw = dict(label="income", num_trees=2, **kw)
+    got = GradientBoostedTreesLearner(**kw, device="cpu").train(train)
+    ref = RefGBT(**kw).train(train)
+    for key in ("growth_engine", "engine_fallback"):
+        assert got.training_logs[key] == ref.training_logs[key]
+    engine, reason = want
+    assert got.training_logs["growth_engine"] == engine
+    fallback = got.training_logs["engine_fallback"]
+    assert fallback is None if reason is None else reason in fallback
 
 
 def test_checkpoint_and_ranking_raise(adult):

@@ -24,6 +24,7 @@ from repro.core.dataspec import dataset_from_raw
 from repro.core.grower import GrowthParams as RefGrowthParams
 from repro.core.grower import grow_tree as ref_grow_tree
 from repro.core.grower import grow_trees as ref_grow_trees
+from repro.core.grower import resolve_engine as ref_resolve_engine
 from repro.core.splitters import SplitterParams as RefSplitterParams
 from repro.core.tree import empty_forest as ref_empty_forest
 from repro.data.tabular import adult_like
@@ -98,8 +99,9 @@ def test_interpret_frontier_equals_reference(numerical_frontier):
                           params(True, device_impl="interpret", **kw),
                           np.random.default_rng(0))
     pf = empty_forest(1, 64, 1, feature_names=binned.names)
-    pnode = grower.grow_tree(pf, 0, to_port(binned), stats, active, leaf_mean,
-                             params(False, device_impl="torch", **kw))
+    pnode = grower.grow_tree(pf, 0, to_port(binned), X, stats, active,
+                             leaf_mean, params(False, device_impl="torch", **kw),
+                             np.random.default_rng(0))
     assert pf.n_nodes[0] > 1, "the tree did not grow"
     assert_same(rf, pf, rnode, pnode)
 
@@ -151,8 +153,9 @@ def test_jnp_path_on_adult_equals_reference(adult_binned, kind, cat_alg,
                           params(True, device_impl="jnp", **kw),
                           np.random.default_rng(0))
     pf = empty_forest(1, M, 1, feature_names=binned.names)
-    pnode = grower.grow_tree(pf, 0, to_port(binned), stats, active, leaf_mean,
-                             params(False, device_impl="torch", **kw))
+    pnode = grower.grow_tree(pf, 0, to_port(binned), X, stats, active,
+                             leaf_mean, params(False, device_impl="torch", **kw),
+                             np.random.default_rng(0))
     assert pf.n_nodes[0] > 3
     assert_same(rf, pf, rnode, pnode)
 
@@ -173,10 +176,10 @@ def test_lockstep_block_equals_reference(adult_binned):
                            params(True, device_impl="jnp", **kw),
                            [np.random.default_rng(0)] * 3, block=4)
     pf = empty_forest(3, 32, 1, feature_names=binned.names)
-    pnode = grower.grow_trees(pf, ts, to_port(binned), list(stats_list),
+    pnode = grower.grow_trees(pf, ts, to_port(binned), None, list(stats_list),
                               list(actives), leaf_mean,
                               params(False, device_impl="torch", **kw),
-                              block=4)
+                              [np.random.default_rng(0)] * 3, block=4)
     assert_same(rf, pf, rnode, pnode)
 
 
@@ -195,27 +198,52 @@ def test_resolve_impl_rules():
         grower_device._resolve_impl("jnp", False, CPU)
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(engine="batched"), "not have yet"),
-    (dict(engine="oracle"), "not have yet"),
-    (dict(engine="warp"), "Unknown growth engine"),
-    (dict(growing_strategy="BEST_FIRST_GLOBAL"), "BEST_FIRST"),
-    (dict(splitter=SplitterParams(categorical_algorithm="RANDOM")), "RANDOM"),
-    (dict(splitter=SplitterParams(num_candidate_ratio=0.5)), "keyed"),
+# The ids are those of the cases when the port had no host engines and each
+# of these raised; they now resolve as the reference resolves them.
+@pytest.mark.parametrize("change,want", [
+    pytest.param(dict(engine="batched"), ("batched", None),
+                 id="change0-not have yet"),
+    pytest.param(dict(engine="oracle"), ("oracle", None),
+                 id="change1-not have yet"),
+    pytest.param(dict(engine="warp"), "Unknown growth engine",
+                 id="change2-Unknown growth engine"),
+    pytest.param(dict(growing_strategy="BEST_FIRST_GLOBAL"),
+                 ("batched", "BEST_FIRST"), id="change3-BEST_FIRST"),
+    pytest.param(dict(splitter=dict(categorical_algorithm="RANDOM")),
+                 ("batched", "RANDOM"), id="change4-RANDOM"),
+    pytest.param(dict(splitter=dict(num_candidate_ratio=0.5)),
+                 ("batched", "keyed"), id="change5-keyed"),
 ])
-def test_unported_engines_and_configurations_raise(change, match):
+def test_unported_engines_and_configurations_raise(change, want):
+    """The reference's resolution: "batched" and "oracle" are honoured; a
+    device-engine configuration it cannot run resolves to ("batched",
+    reason) with the reference's reason; an unknown engine raises."""
+    sp = change.pop("splitter", {})
     gp = dataclasses.replace(grower.GrowthParams(engine="device",
-                                                 device="cpu"), **change)
-    with pytest.raises(YdfError, match=match):
-        grower.resolve_engine(gp)
+                                                 device="cpu"),
+                             splitter=SplitterParams(**sp), **change)
+    if isinstance(want, str):
+        with pytest.raises(YdfError, match=want):
+            grower.resolve_engine(gp)
+        return
+    rgp = dataclasses.replace(RefGrowthParams(engine="device"),
+                              splitter=RefSplitterParams(**sp), **change)
+    engine, reason = grower.resolve_engine(gp)
+    assert (engine, reason) == ref_resolve_engine(rgp)
+    assert engine == want[0]
+    if want[1] is None:
+        assert reason is None
+    else:
+        assert want[1] in reason
 
 
 def test_level_steps_are_counted(numerical_frontier):
     binned, _, stats, active = numerical_frontier
     pf = empty_forest(1, 64, 1, feature_names=binned.names)
     before = grower_device.LEVEL_STEPS
-    grower.grow_tree(pf, 0, to_port(binned), stats, active, leaf_mean,
-                     params(False, max_depth=3, max_nodes=64))
+    grower.grow_tree(pf, 0, to_port(binned), None, stats, active, leaf_mean,
+                     params(False, max_depth=3, max_nodes=64),
+                     np.random.default_rng(0))
     assert 1 <= grower_device.LEVEL_STEPS - before <= 3
 
 
