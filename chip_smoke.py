@@ -10,15 +10,20 @@ on ``synth_higgs_like`` (100,000 rows of 28 numerical columns and a binary
 label, the widths of UCI HIGGS, made from a numpy seed) through the device
 growth engine (growth_engine="device") and through the default batched
 engine (no override), compile it, and serve it through the traversal
-kernel. The serving front end is also driven at the full width of the
+kernel; train the default Random Forest (max_depth 16, 4,096 nodes, sqrt(F)
+candidates, bootstrap, out-of-bag evaluation; the first RF_TREES of its 300
+trees) and the default CART tree on the same data and serve the forest; and
+run the single-tree traversal kernel on the trained forest and the GBT.
+The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
 each column's range, category masks over each vocabulary). Phases, one
 JSON line each:
 
   1. device        — the card (nvidia-smi name and power limit), torch, CUDA.
-  2. build         — every kernel source built from ``csrc/`` with nvcc, one
-                     nvcc per source, all started together.
+  2. build         — every kernel source (``kernels/_build.SOURCES``) built
+                     from ``csrc/`` with nvcc, one nvcc per source, all
+                     started together.
   3. kernel        — the traversal kernel against its plain PyTorch version
                      at the serving shapes, hostile values included
                      (``torch.equal``), and the full traversal against the
@@ -61,13 +66,40 @@ JSON line each:
                      ``finalize(predict_naive(encode(batch)))``, every
                      dispatch went through the kernel engine, and the kernel
                      launched (counts reset just before, read just after).
- 11. timings       — per kernel: time per call (CUDA events around each call,
+ 11. train_rf      — the default Random Forest with no override (batched
+                     engine, tree by tree, every histogram built by the
+                     histogram kernel: launches == builds), cut to RF_TREES
+                     trees (the cut and the seconds per tree printed); a
+                     4-tree card run against the CPU's (numpy backend,
+                     lockstep block), equal on every forest field; a traced
+                     run of RF_PROFILE_TREES trees.
+ 12. train_rf_device — the same with growth_engine="device" (the split-search
+                     kernel, "class" stats, blocks of 8): >= 99.5% of each
+                     structure field as train_rf's, and two card runs of its
+                     first block equal bit for bit.
+ 13. train_cart    — the default CART tree (batched engine, histogram kernel,
+                     host pruning); on COMPARE_ROWS rows the card's tree
+                     equals the CPU's on every field.
+ 14. serve_rf      — the trained forest through the tiled traversal kernel
+                     (M = 4,096, depth up to 16), equal to ``predict_naive``.
+ 15. kernel_single — the single-tree traversal kernel driven through
+                     ``forest_predict(impl="single")`` on the trained forest
+                     and the GBT (counts reset just before, read just
+                     after), then held to its plain version (``torch.equal``)
+                     and to ``predict_naive`` on the host (``array_equal``)
+                     on the trained forest, the GBT and a hand-built zoo
+                     (mask words 0x80000001 and 0xFFFFFFFF, codes 0, 31, 32
+                     and 255, NaN, +-inf and |x| >= 2^63, a stump forest, a
+                     0-row batch that launches nothing).
+ 16. timings       — per kernel: time per call (CUDA events around each call,
                      median of 20 after warm-up; the wrapper's host-side
-                     checks fall inside the window), device time
-                     (torch.profiler), the plain version's time, the bound
+                     checks fall inside the window), device time (the same
+                     events with the host hidden behind a sleep kernel,
+                     ``device_only_ms``), the plain version's time, the bound
                      and, for the histogram kernel, one ``index_add_`` over
                      precomputed flat ids (the library call that computes
-                     its function); the serve phase's latency and rows/s (a smoke
+                     its function; no PyTorch call traverses a tree); the
+                     serve phase's latency and rows/s (a smoke
                      reading over ~50 requests, server built before the clock
                      starts).
 
@@ -82,7 +114,6 @@ import json
 import platform
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -121,6 +152,12 @@ HIST_KERNELS = ("amax_kernel", "accumulate_kernel", "convert_kernel",
 # version a float64 sum, both to float32
 HIST_RTOL, HIST_ATOL = 1e-6, 1e-6   # atol in units of the stat's max |v|
 BEST_FIRST_ROWS, BEST_FIRST_TREES = 3_000, 5
+# the default Random Forest (300 trees) cut to two lockstep blocks of 8;
+# every tree is grown alone, so the seconds per tree scale to 300
+RF_TREES, RF_PROFILE_TREES = 16, 4
+FOREST_FIELDS = STRUCT_FIELDS + ("threshold", "leaf_value", "split_gain")
+SINGLE_TIMED = (("gbt", 1024), ("gbt", 4096), ("rf", 10_000))
+NAIVE_ROWS = 512          # rows held to the host's per-example predict_naive
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -259,21 +296,20 @@ def emit(**fields) -> None:
 # ------------------------------------------------------------------ phases
 
 def build_kernels() -> dict:
-    """Build every kernel source of the path with nvcc, one process per
-    source, all started together, then load each library."""
+    """Build every kernel source with nvcc, one process per source, all
+    started together, then load each library."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.forest_infer import forest_infer
     from repro_torch.kernels.histogram import fused, histogram
-    modules = (forest_infer, fused, histogram)
-    with ThreadPoolExecutor(len(modules)) as pool:
-        results = list(pool.map(lambda m: _build.build(m.SOURCE), modules))
-    for m in modules:
-        m.library()
-    return {m.SOURCE.name: {
+    results = _build.build_all()
+    for load in (forest_infer.library, forest_infer.single_library,
+                 fused.library, histogram.library):
+        load()
+    return {src.name: {
         "seconds": r.seconds,
         "ptxas": [ln.strip() for ln in r.log.splitlines()
                   if "registers" in ln or "spill" in ln]}
-        for m, r in zip(modules, results)}
+        for src, r in results.items()}
 
 
 def check_kernel(model, device, sizes=KERNEL_SIZES, naive_rows=64) -> dict:
@@ -632,15 +668,20 @@ def compare_card_and_cpu(device, fit=train_gbt) -> dict:
 
 def profile_training(data: dict, device, fit=train_gbt,
                      kernels: tuple = FUSED_KERNELS,
-                     n_trees: int = PROFILE_TREES) -> dict:
-    """Where a training run's time goes: a traced ``n_trees`` ``fit`` run,
-    with seconds per span (the repro_torch.obs tracer; while tracing, the
-    device engine's level-step span closes after a CUDA sync, and the
-    batched engine's histogram build ends in its device-to-host copy, so
-    each holds its device time) and the card's busy time (torch.profiler:
-    the sum of every kernel, copy and memset over the run), split into
-    host-to-device copies, device-to-host copies and the path's kernel
-    (the device activities whose names contain one of ``kernels``)."""
+                     n_trees: int = PROFILE_TREES, tree_span: str = "gbt/tree",
+                     **hparams) -> dict:
+    """Where a training run's time goes: a traced ``n_trees`` ``fit`` run
+    (with ``hparams``; a GBT without early stopping), with seconds per span
+    (the repro_torch.obs tracer; while tracing, the device engine's
+    level-step span closes after a CUDA sync, and the batched engine's
+    histogram build ends in its device-to-host copy, so each holds its
+    device time) and the card's busy time (torch.profiler: the sum of every
+    kernel, copy and memset over the run), split into host-to-device copies,
+    device-to-host copies and the path's kernel (the device activities whose
+    names contain one of ``kernels``); the idle share is taken over the wall
+    and over the ``tree_span`` spans."""
+    if tree_span == "gbt/tree":
+        hparams.setdefault("early_stopping", "NONE")
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs import clock, trace
@@ -648,16 +689,22 @@ def profile_training(data: dict, device, fit=train_gbt,
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         with trace.capture() as tracer:
             t0 = clock.perf()
-            fit(data, device, num_trees=n_trees, early_stopping="NONE")
+            fit(data, device, num_trees=n_trees, **hparams)
             wall = clock.perf() - t0
         torch.cuda.synchronize()
     phases = {name: {"count": int(d["count"]), "total_s": d["total_s"]}
               for name, d in phase_summary(tracer).items()}
+    averages = prof.key_averages()
     events = [(ev.key, getattr(ev, "device_time_total", 0.0) / 1e3)
-              for ev in prof.key_averages()]
+              for ev in averages]
     busy_ms = sum(ms for _, ms in events)
-    trees_s = phases["gbt/tree"]["total_s"]
+    trees_s = phases[tree_span]["total_s"]
     return {"trees": n_trees, "wall_s": wall, "phases": phases,
+            # the profiler may drop records (see device_only_ms): the
+            # kernel's record count, against its launches, says how many
+            # it kept, and the busy time is a lower bound
+            "kernel_records": {ev.key[:48]: ev.count for ev in averages
+                               if any(n in ev.key for n in kernels)},
             "device_busy_ms": busy_ms,
             "device_ms": {
                 "h2d_copies": sum(ms for k, ms in events if "HtoD" in k),
@@ -705,44 +752,51 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def profiled_ms(fn, kernels: tuple, reps: int = 20) -> float | None:
-    """Device time per call of ``fn``: the CUDA activity whose names
-    contain one of ``kernels``, from torch.profiler over ``reps`` calls;
-    None when the profiler records no device time for them."""
+def device_only_ms(fn, reps: int = 20, warmup: int = 3,
+                   sleep_cycles: int = 2_000_000) -> float:
+    """Median device time of one call of ``fn``, the host excluded: CUDA
+    events recorded around the call while a sleep kernel of
+    ``sleep_cycles`` (~1 ms; ``torch.cuda._sleep``) holds the stream, so
+    the events and the call's kernels run back to back on the card however
+    long the host takes to enqueue them. (torch.profiler, over 20 calls in
+    this long process, was seen to keep the records of only 16-17 calls of
+    the split-search and histogram kernels and of none of the traversal
+    kernels.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(ev, "device_time_total", 0.0)
-                   for ev in prof.key_averages()
-                   if any(k in ev.key for k in kernels))
-    return total_us / reps / 1e3 if total_us else None
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
-def kernel_bound(model, X, packed) -> dict:
+def traversal_bound(forest, X, extra_bytes: int = 0) -> dict:
     """The least time the card could take for one traversal call: bytes
-    (X read once, the nodes each tree holds read once — not the padding of
-    the packed layout — and one output per example and tree written once)
-    over HBM bandwidth, against node visits (one fp32 compare each, counted
-    on this input by traversing with each node's depth as its leaf value)
-    over the fp32 peak."""
+    (X read once, the nodes each tree holds read once — feature, threshold
+    and left_child 4 B each, the 32 B mask, 4 * O B of leaf value, and not
+    the padding of a packed layout —, ``extra_bytes`` of other inputs, and
+    one output per example and tree written once) over HBM bandwidth,
+    against node visits (one fp32 compare each, counted on this input by
+    traversing with each node's depth as its leaf value) over the fp32
+    peak."""
     import torch
     from repro_torch.core.tree import node_depths
     from repro_torch.kernels.forest_infer import ops
     from repro_torch.kernels.forest_infer.ref import forest_predict_ref
-    B, TB, M = packed.feature.shape
-    O = packed.leaf_value.shape[-1]
+    O = forest.leaf_value.shape[-1]
     n = X.shape[0]
-    forest = model.forest
-    slots = B * TB * M
-    node_bytes = sum(t.numel() * t.element_size() // slots
-                     for t in packed.tables[:5])           # 48 B when O = 1
+    node_bytes = 4 + 4 + 4 + 32 + 4 * O                   # 48 B when O = 1
     nbytes = (X.numel() * X.element_size() + int(forest.n_nodes.sum()) * node_bytes
-              + packed.block_depth.numel() * 4 + n * forest.n_trees * O * 4)
+              + extra_bytes + n * forest.n_trees * O * 4)
     soa = ops.device_soa(forest, X.device)
     depth = np.maximum(node_depths(forest), 0).astype(np.float32)[..., None]
     visits = float(forest_predict_ref(
@@ -753,6 +807,12 @@ def kernel_bound(model, X, packed) -> dict:
             "node_visits": visits,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_bound(model, X, packed) -> dict:
+    """``traversal_bound`` of the tiled kernel: its per-block depths are
+    the one input beside X and the nodes."""
+    return traversal_bound(model.forest, X, packed.block_depth.numel() * 4)
 
 
 def time_kernel(model, device) -> dict:
@@ -766,8 +826,7 @@ def time_kernel(model, device) -> dict:
         X = torch.from_numpy(encoded_inputs(n, seed=100 + n)).to(device)
         kernel = lambda: forest_predict_tiled(X, *packed.tables)
         row = {"kernel_ms": device_ms(kernel),
-               "kernel_device_ms": profiled_ms(
-                   kernel, ("forest_infer_tiled_kernel",)),
+               "kernel_device_ms": device_only_ms(kernel),
                "plain_ms": device_ms(
                    lambda: forest_predict_packed_ref(X, *packed.tables)),
                "kernel_path_ms": device_ms(
@@ -805,7 +864,7 @@ def time_fused(device) -> dict:
         args = fused_inputs(FUSED_N, FUSED_KF, w, "gh", 200 + w, device)
         kernel = lambda: fused_split(*args, w, kind="gh", min_examples=5)
         row = {"kernel_ms": device_ms(kernel),
-               "kernel_device_ms": profiled_ms(kernel, FUSED_KERNELS),
+               "kernel_device_ms": device_only_ms(kernel),
                "plain_ms": device_ms(
                    lambda: fused_split_ref(*args, w, kind="gh",
                                            min_examples=5))}
@@ -854,7 +913,7 @@ def time_hist(device) -> dict:
         flat = torch.zeros((k * F * 256 + 1, S), device=device)
         kernel = lambda: histogram(codes, stats, node_of, k)
         row = {"kernel_ms": device_ms(kernel),
-               "kernel_device_ms": profiled_ms(kernel, HIST_KERNELS),
+               "kernel_device_ms": device_only_ms(kernel),
                "plain_ms": device_ms(
                    lambda: histogram_f32_ref(codes, stats, node_of, k)),
                "library_ms": device_ms(lambda: flat.index_add_(0, seg, vals))}
@@ -909,6 +968,277 @@ def train_best_first(device, backend) -> dict:
             "valid_accuracy": card.self_evaluation["accuracy"]}
 
 
+# ------------------------------------------- single-tree traversal (B4)
+
+def _hand_forest(trees: list, M: int = 8, O: int = 2):
+    """A port Forest from hand-written trees: each tree a dict node ->
+    (column, threshold or None, {word: mask}) for internal nodes, children
+    at 2i+1 and 2i+2 of a heap layout, every leaf's value [t + node, -node]."""
+    from repro_torch.core.tree import empty_forest, node_depths
+    forest = empty_forest(len(trees), M, O)
+    for t, nodes in enumerate(trees):
+        for node, (col, thr, words) in nodes.items():
+            forest.feature[t, node] = col
+            forest.left_child[t, node] = 2 * node + 1
+            if thr is not None:
+                forest.threshold[t, node] = thr
+            for w, bits in words.items():
+                forest.cat_mask[t, node, w] = np.uint32(bits)
+        n = max([0] + [2 * i + 2 for i in nodes]) + 1
+        forest.n_nodes[t] = n
+        for node in range(n):
+            forest.leaf_value[t, node] = [t + node, -node][:O]
+    forest.depth = int(max(0, node_depths(forest).max()))
+    return forest
+
+
+def single_zoo() -> dict:
+    """Hand-built (forest, X) cases for the single-tree kernel: category
+    masks whose words float32 cannot hold (0x80000001) and full words
+    (0xFFFFFFFF), codes 0, 31, 32 and 255, NaN, +-inf, |x| >= 2^63 and huge
+    or negative values in every column, and a forest of stumps (depth 0:
+    one round)."""
+    mixed = _hand_forest([
+        # codes 0 and 31 right at the root; codes 32 and 255 right below
+        {0: (0, None, {0: 0x80000001}), 1: (1, None, {1: 0x1, 7: 0x80000000}),
+         2: (2, 0.5, {})},
+        {0: (1, None, {w: 0xFFFFFFFF for w in range(8)})},   # all go right
+        {},                                                   # a stump
+        {0: (2, -1.0, {}), 2: (0, None, {0: 0x7FFFFFFE, 3: 0xFFFF0000})},
+    ])
+    stumps = _hand_forest([{}, {}, {}], M=1, O=1)
+    codes = [0.0, 31.0, 32.0, 255.0, 1.0, 5.0, 96.0, 127.5]
+    hostile = [float("nan"), float("inf"), float("-inf"), 2.0 ** 63,
+               -(2.0 ** 63), 1e20, 3e38, -3.0, 256.0, -0.5]
+    rng = np.random.default_rng(11)
+    vals = np.array(codes + hostile, np.float32)
+    X = rng.choice(vals, (600, 3)).astype(np.float32)
+    X[:len(vals)] = vals[:, None]                   # each value in every column
+    return {"mixed": (mixed, X), "stumps": (stumps, X),
+            "mixed, 0 rows": (mixed, X[:0])}
+
+
+def check_single_case(forest, X: np.ndarray, device) -> float:
+    """The single-tree kernel against its plain version on ``device`` on
+    every row (``torch.equal``), and the traversal against the host's
+    ``predict_naive`` on the first NAIVE_ROWS rows (``array_equal``).
+    Returns the largest absolute difference (0.0 when bit-identical)."""
+    import torch
+    from repro_torch.core.tree import predict_naive
+    from repro_torch.kernels.forest_infer import ops
+    from repro_torch.kernels.forest_infer.forest_infer import forest_predict_single
+    from repro_torch.kernels.forest_infer.ref import forest_predict_ref
+    soa = ops.device_soa(forest, device)
+    Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+    got = forest_predict_single(Xd, *soa[:5], depth=forest.depth)
+    want = forest_predict_ref(Xd, *soa[:5], depth=forest.depth)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if got.shape != (len(X), forest.n_trees, forest.leaf_value.shape[-1]):
+        raise AssertionError(f"single-tree kernel gave {tuple(got.shape)}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"single-tree kernel != plain version: max abs "
+                             f"diff {float((got - want).abs().max())}")
+    naive = predict_naive(forest, X[:NAIVE_ROWS])
+    if not np.array_equal(got[:NAIVE_ROWS].cpu().numpy(), naive):
+        raise AssertionError("single-tree kernel != numpy predict_naive")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def check_single(cases: dict, device) -> dict:
+    """``check_single_case`` over named (forest, X) cases; a 0-row case
+    must launch nothing."""
+    from repro_torch.kernels.forest_infer import forest_infer
+    out = {}
+    for name, (forest, X) in cases.items():
+        before = forest_infer.SINGLE_LAUNCHES
+        err = check_single_case(forest, X, device)
+        if len(X) == 0 and forest_infer.SINGLE_LAUNCHES != before:
+            raise AssertionError(f"{name}: a 0-row batch launched the kernel")
+        out[name] = {"rows": len(X), "trees": forest.n_trees,
+                     "max_nodes": forest.max_nodes, "depth": forest.depth,
+                     "out_dim": int(forest.leaf_value.shape[-1]),
+                     "max_abs_err": err}
+    return {"cases": out, "max_abs_err": max(c["max_abs_err"]
+                                             for c in out.values())}
+
+
+def time_single(cases: dict, device) -> dict:
+    """The single-tree kernel, its plain version and its bound per named
+    (forest, X) case."""
+    import torch
+    from repro_torch.kernels.forest_infer import ops
+    from repro_torch.kernels.forest_infer.forest_infer import forest_predict_single
+    from repro_torch.kernels.forest_infer.ref import forest_predict_ref
+    out = {}
+    for name, (forest, X) in cases.items():
+        soa = ops.device_soa(forest, device)
+        Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+        kernel = lambda: forest_predict_single(Xd, *soa[:5], depth=forest.depth)
+        row = {"kernel_ms": device_ms(kernel),
+               "kernel_device_ms": device_only_ms(kernel),
+               "plain_ms": device_ms(lambda: forest_predict_ref(
+                   Xd, *soa[:5], depth=forest.depth))}
+        row.update(traversal_bound(forest, Xd))
+        out[name] = row
+    return out
+
+
+# ------------------------------------------------------- Random Forest, CART
+
+def train_rf(data: dict, device, label: str = "label", **hparams):
+    """The default Random Forest (batched engine, histogram_backend "auto":
+    the CUDA histogram kernel on a CUDA device, numpy lockstep blocks on
+    the CPU), trained on ``device``."""
+    from repro_torch.core.rf import RandomForestLearner
+    return RandomForestLearner(
+        label=label, seed=LEARNER_SEED, device=device, **hparams).train(data)
+
+
+def train_rf_device(data: dict, device, **hparams):
+    """The default Random Forest with the device growth engine."""
+    return train_rf(data, device, growth_engine="device", **hparams)
+
+
+def train_cart(data: dict, device, label: str = "label", **hparams):
+    """The default CART tree, trained on ``device``."""
+    from repro_torch.core.cart import CartLearner
+    return CartLearner(label=label, seed=LEARNER_SEED, device=device,
+                       **hparams).train(data)
+
+
+def identical(a, b, n_trees: int | None = None) -> bool:
+    """Every forest field of the first ``n_trees`` trees (all when None)
+    equal, and the depth when all trees are compared."""
+    sl = slice(None) if n_trees is None else slice(0, n_trees)
+    same = all(np.array_equal(getattr(a.forest, k)[sl], getattr(b.forest, k)[sl])
+               for k in FOREST_FIELDS)
+    return same and (n_trees is not None or a.forest.depth == b.forest.depth)
+
+
+def compare_exact(fit, device, n_rows: int = COMPARE_ROWS, **hparams) -> dict:
+    """A ``fit`` run on the card against the same run on the CPU (numpy
+    backend): every forest field equal (the stats are integer bootstrap
+    counts or one-hot labels, so every histogram cell is exact in float32 on
+    both), the out-of-bag or training logs' metrics equal; a second card
+    run equal too."""
+    data = higgs_like(n_rows)
+    card = fit(data, device, **hparams)
+    again = fit(data, device, **hparams)
+    cpu = fit(data, "cpu", **hparams)
+    if not identical(card, again):
+        raise AssertionError("two card runs of the same training differ")
+    if not identical(card, cpu):
+        raise AssertionError(f"card vs CPU forests differ: agreement "
+                             f"{agreement(card, cpu)}")
+    oob = [m.self_evaluation and m.self_evaluation.metrics for m in (card, cpu)]
+    if oob[0] != oob[1]:
+        raise AssertionError(f"card vs CPU out-of-bag metrics differ: {oob}")
+    return {"rows": n_rows, **hparams, "identical": True,
+            "cpu_engine": cpu.training_logs["growth_engine"],
+            "cpu_backend": cpu.training_logs.get("histogram_backend"),
+            "nodes": int(card.forest.n_nodes.sum())}
+
+
+def run_rf(data: dict, device, backend) -> tuple:
+    """The default Random Forest cut to RF_TREES trees on the card, counts
+    reset just before and read just after: every level histogram built by
+    the histogram kernel (launches == builds). Returns (model, summary)."""
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.obs import clock
+    histogram.LAUNCHES = 0               # the Random Forest run starts here
+    backend.builds = 0
+    t0 = clock.perf()
+    model = train_rf(data, device, num_trees=RF_TREES)
+    seconds = clock.perf() - t0
+    launches, builds = histogram.LAUNCHES, backend.builds  # ... ends here
+    logs = model.training_logs
+    if (logs["growth_engine"], logs["engine_fallback"],
+            logs["histogram_backend"]) != ("batched", None, "cuda"):
+        raise AssertionError(f"Random Forest trained with {logs}")
+    if builds <= 0 or launches != builds:
+        raise AssertionError(f"{builds} histogram builds made {launches} "
+                             "kernel launches")
+    f = model.forest
+    if f.n_trees != RF_TREES or f.max_nodes != 4096:
+        raise AssertionError(f"forest of {f.n_trees} trees x {f.max_nodes}")
+    return model, {
+        "rows": len(data["label"]), "trees": RF_TREES,
+        "cut": f"{RF_TREES} of the default 300 trees",
+        "seconds": seconds, "seconds_per_tree": seconds / RF_TREES,
+        "builds": builds, "launches": launches,
+        "nodes_mean": float(f.n_nodes.mean()), "depth": f.depth,
+        "oob_accuracy": model.self_evaluation["accuracy"],
+        "oob_coverage": logs["oob"]["coverage"]}
+
+
+def run_rf_device(data: dict, device, batched) -> tuple:
+    """The default Random Forest with the device engine, RF_TREES trees:
+    every level step launches the split-search kernel; >= 99.5% of each
+    structure field as the batched run ``batched``; a second card run of
+    its first block (tree_parallelism trees) equal bit for bit."""
+    from repro_torch.core import grower_device
+    from repro_torch.kernels.histogram import fused
+    from repro_torch.obs import clock
+    fused.LAUNCHES = 0                   # the device-engine run starts here
+    grower_device.LEVEL_STEPS = 0
+    t0 = clock.perf()
+    model = train_rf_device(data, device, num_trees=RF_TREES)
+    seconds = clock.perf() - t0
+    launches, steps = fused.LAUNCHES, grower_device.LEVEL_STEPS  # ... ends
+    logs = model.training_logs
+    if (logs["growth_engine"], logs["device_impl"]) != ("device", "cuda"):
+        raise AssertionError(f"Random Forest trained with {logs}")
+    if steps <= 0 or launches < steps:
+        raise AssertionError(f"{steps} level steps made {launches} "
+                             "split-search launches")
+    agree = agreement(model, batched)
+    low = {k: v for k, v in agree.items() if v < 0.995}
+    if low:
+        raise AssertionError(f"device vs batched forest agrees only {low}")
+    block = logs["tree_parallelism"]
+    again = train_rf_device(data, device, num_trees=block)
+    if not identical(model, again, block):
+        raise AssertionError("two card runs of the device engine differ")
+    return model, {
+        "rows": len(data["label"]), "trees": RF_TREES, "seconds": seconds,
+        "seconds_per_tree": seconds / RF_TREES, "level_steps": steps,
+        "launches": launches, "agree_with_batched": agree,
+        "repeat_trees_identical": block,
+        "oob_accuracy": model.self_evaluation["accuracy"]}
+
+
+def run_cart(data: dict, device, backend) -> dict:
+    """The default CART tree on the card (histogram kernel, launches ==
+    builds, then host pruning), and on COMPARE_ROWS rows the card's tree
+    equal to the CPU's on every field."""
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.obs import clock, trace
+    from repro_torch.obs.export import phase_summary
+    histogram.LAUNCHES = 0               # the CART run starts here
+    backend.builds = 0
+    t0 = clock.perf()
+    with trace.capture() as tracer:
+        model = train_cart(data, device)
+    seconds = clock.perf() - t0
+    launches, builds = histogram.LAUNCHES, backend.builds  # ... ends here
+    logs = model.training_logs
+    if (logs["growth_engine"], logs["histogram_backend"]) != ("batched", "cuda"):
+        raise AssertionError(f"CART trained with {logs}")
+    if builds <= 0 or launches != builds:
+        raise AssertionError(f"{builds} histogram builds made {launches} "
+                             "kernel launches")
+    spans = phase_summary(tracer)
+    return {"rows": len(data["label"]), "seconds": seconds,
+            "grow_s": spans["cart/grow"]["total_s"],
+            "prune_s": spans["cart/prune"]["total_s"],
+            "builds": builds, "launches": launches,
+            "nodes": int(model.forest.n_nodes[0]),
+            "internal_after_pruning": int((model.forest.left_child[0] >= 0).sum()),
+            "depth": model.forest.depth,
+            "card_vs_cpu": compare_exact(train_cart, device)}
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -923,8 +1253,9 @@ def main() -> int:
               "the port on a GPU and has nothing to run here.", file=sys.stderr)
         return 1
     from repro_torch.core import grower_device
+    from repro_torch.core.dataspec import BatchEncoder
     from repro_torch.core.hist_backend import resolve_backend
-    from repro_torch.kernels.forest_infer import forest_infer
+    from repro_torch.kernels.forest_infer import forest_infer, ops
     from repro_torch.kernels.histogram import fused, histogram
     from repro_torch.obs import clock
     device = torch.device("cuda")
@@ -1031,12 +1362,60 @@ def main() -> int:
         raise AssertionError("the served requests launched no kernel")
     emit(phase="serve", **stats, launches=launches)
 
+    # the default Random Forest, cut to RF_TREES trees, and CART
+    rf, rf_run = run_rf(data, device, backend)
+    emit(phase="train_rf", **rf_run,
+         card_vs_cpu=compare_exact(train_rf, device, num_trees=4),
+         profile=profile_training(data, device, fit=train_rf,
+                                  kernels=HIST_KERNELS,
+                                  n_trees=RF_PROFILE_TREES,
+                                  tree_span="rf/block"))
+    _, rf_device_run = run_rf_device(data, device, rf)
+    emit(phase="train_rf_device", **rf_device_run)
+    emit(phase="train_cart", **run_cart(data, device, backend))
+
+    forest_infer.LAUNCHES = 0            # serving the trained forest
+    served_rf = serve_trained(rf, valid, device)
+    rf_served_launches = forest_infer.LAUNCHES
+    if rf_served_launches <= 0:
+        raise AssertionError("serving the trained forest launched no kernel")
+    emit(phase="serve_rf", **served_rf, launches=rf_served_launches,
+         trees=rf.forest.n_trees, max_nodes=rf.forest.max_nodes,
+         depth=rf.forest.depth)
+
+    # the single-tree kernel's path: forest_predict(impl="single") on the
+    # trained forest and on the default GBT
+    X_rf = BatchEncoder(rf.spec, rf.features).encode(
+        {k: valid[k] for k in rf.features})
+    X_gbt = encoded_inputs(TIMED_SIZES[0], seed=12)
+    forest_infer.SINGLE_LAUNCHES = 0     # the single-tree path starts here
+    single_out = [ops.forest_predict(m.forest, X, "single", device)
+                  for m, X in ((rf, X_rf), (model, X_gbt))]
+    torch.cuda.synchronize()
+    single_launches = forest_infer.SINGLE_LAUNCHES   # ... and ends here
+    if single_launches != 2:
+        raise AssertionError(f"two single-tree calls made {single_launches} "
+                             "kernel launches")
+    for (m, X), got in zip(((rf, X_rf), (model, X_gbt)), single_out):
+        if not torch.equal(got, ops.forest_predict(m.forest, X, "cuda", device)):
+            raise AssertionError("single-tree traversal != tiled traversal")
+    single_check = check_single(
+        {"rf, trained": (rf.forest, X_rf),
+         "gbt, default": (model.forest, encoded_inputs(TIMED_SIZES[-1], 13)),
+         **single_zoo()}, device)
+    emit(phase="kernel_single", launches=single_launches, **single_check)
+
     timings = time_kernel(model, device)
     fused_t = time_fused(device)
     hist_t = time_hist(device)
+    single_t = time_single({
+        f"{name} N={n}": ((rf if name == "rf" else model).forest,
+                          X_rf[:n] if name == "rf" else encoded_inputs(n, 100 + n))
+        for name, n in SINGLE_TIMED}, device)
     emit(phase="timings", card=card, **{f"N={n}": row for n, row in timings.items()},
          **{f"fused W={w}": row for w, row in fused_t.items()},
          **{f"hist n_nodes={k}": row for k, row in hist_t.items()},
+         **{f"single {k}": row for k, row in single_t.items()},
          server_p50_ms=stats["p50_ms"], server_p99_ms=stats["p99_ms"],
          server_rows_per_s=stats["rows_per_s"])
 
@@ -1046,6 +1425,8 @@ def main() -> int:
     f = fused_t[main_w]
     main_k = HIST_TIMED_NODES[-1]     # the widest level of a depth-6 tree
     h = hist_t[main_k]
+    main_s = "rf N={}".format(SINGLE_TIMED[-1][1])   # the trained forest
+    s1 = single_t[main_s]
     print(json.dumps({"kernels": [{
         "name": "forest_infer_tiled",
         "route": "cuda",
@@ -1082,6 +1463,19 @@ def main() -> int:
         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
         "library_ms": h["library_ms"],
         "shape": f"N={HIST_N}, F={HIST_F}, S=4 (gh), n_nodes={main_k}",
+    }, {
+        "name": "forest_single",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/forest_infer/csrc/forest_single.cu",
+        "replaces": "src/repro/kernels/forest_infer/forest_infer.py:94",
+        "launches": single_launches,
+        "max_abs_err": single_check["max_abs_err"],
+        "ms": s1["kernel_ms"], "device_ms": s1["kernel_device_ms"],
+        "plain_ms": s1["plain_ms"],
+        "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
+        "library_ms": None,
+        "shape": (f"{main_s}, T={rf.forest.n_trees}, M={rf.forest.max_nodes}, "
+                  f"depth={rf.forest.depth}, O={rf.forest.leaf_value.shape[-1]}"),
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

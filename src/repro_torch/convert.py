@@ -22,6 +22,7 @@ from repro_torch.core.binning import BinnedFeatures
 from repro_torch.core.dataspec import spec_from_dict
 from repro_torch.core.losses import loss_by_name
 from repro_torch.core.models import (
+    CartModel,
     DecisionForestModel,
     GradientBoostedTreesModel,
     RandomForestModel,
@@ -85,7 +86,9 @@ def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
                       winner_take_all: bool = True) -> DecisionForestModel:
     """The port's model for a reference model's data.
 
-    kind: "gbt" or "rf". task: a ``Task`` (either package's) or its name.
+    kind: "gbt", "rf" or "cart". task: a ``Task`` (either package's) or its
+    name. A CART model serves as the reference's does: the mean of its one
+    tree, without winner-take-all.
     For a GBT, ``loss`` is the reference loss's ``name`` (``BINOMIAL_LOG_LIKELIHOOD``,
     ``MULTINOMIAL_LOG_LIKELIHOOD``, ``SQUARED_ERROR``); None derives it from
     the task and the forest's output dimension."""
@@ -100,8 +103,11 @@ def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
                   classes=None if classes is None else list(classes))
     if kind == "rf":
         return RandomForestModel(winner_take_all=winner_take_all, **common)
+    if kind == "cart":
+        return CartModel(winner_take_all=False, **common)
     if kind != "gbt":
-        raise YdfError(f"Unknown model kind {kind!r}; expected 'gbt' or 'rf'.")
+        raise YdfError(f"Unknown model kind {kind!r}; expected 'gbt', 'rf' "
+                       "or 'cart'.")
     if loss is None:
         if task == Task.REGRESSION:
             loss = "SQUARED_ERROR"

@@ -52,10 +52,7 @@ class GradientBoostedTreesLearner(Learner):
     def train(self, dataset, valid=None, checkpoint=None
               ) -> GradientBoostedTreesModel:
         from repro_torch.core.engines import resolve_device
-        if checkpoint is not None:
-            raise YdfError(
-                "Checkpointed training (checkpoint=...) is not ported yet. "
-                "Solution: train without checkpoint=.")
+        _check_checkpoint(checkpoint)
         if self.task not in (Task.CLASSIFICATION, Task.REGRESSION):
             raise YdfError(
                 f"GBT training for task={self.task.value} is not ported yet; "
@@ -110,14 +107,7 @@ class GradientBoostedTreesLearner(Learner):
                           sampling_key=self.seed & 0xFFFFFFFF,
                           device=str(device))
         engine_used, engine_fallback = resolve_engine(gp, td.binned, oblique)
-        if engine_used == "device":
-            impl = {"device_impl": _resolve_impl(
-                gp.device_impl, bool(td.binned.is_cat.any()), device)}
-        elif engine_used == "batched":
-            impl = {"histogram_backend": resolve_backend(
-                gp.histogram_backend, device).name}
-        else:
-            impl = {}
+        impl = _engine_logs(gp, engine_used, td.binned, device)
         shrink, l2 = hp.shrinkage, hp.l2_regularization
 
         def leaf_fn(s):
@@ -187,6 +177,29 @@ class GradientBoostedTreesLearner(Learner):
             extra={"train_loss": train_losses, "valid_loss": valid_losses,
                    "device": str(device), **impl})
         return model
+
+
+def _check_checkpoint(checkpoint) -> None:
+    """The checkpoint seam is not ported yet (ROADMAP A5a): every learner
+    of the port refuses a checkpoint instead of ignoring it."""
+    if checkpoint is not None:
+        raise YdfError(
+            "Checkpointed training (checkpoint=...) is not ported yet. "
+            "Solution: train without checkpoint=.")
+
+
+def _engine_logs(gp: GrowthParams, engine_used: str, binned,
+                 device) -> dict:
+    """The training_logs entry naming what ran under the engine: the
+    device engine's split-search impl, or the batched engine's histogram
+    backend."""
+    if engine_used == "device":
+        return {"device_impl": _resolve_impl(
+            gp.device_impl, bool(binned.is_cat.any()), device)}
+    if engine_used == "batched":
+        return {"histogram_backend": resolve_backend(
+            gp.histogram_backend, device).name}
+    return {}
 
 
 def _one_tree(forest: Forest, t: int) -> Forest:

@@ -24,9 +24,17 @@ Three engines, as in the reference:
     fused split-search kernel. A configuration it cannot run resolves to
     ("batched", reason), and the learner records the reason.
 
-Not ported yet: the host lockstep path of Random Forest blocks
-(``_grow_level_wise_lockstep``, ROADMAP A8; a request for it raises) and
-sparse-oblique splits (raise).
+Independent trees (Random Forest) can also grow as lockstep BLOCKS through
+``grow_trees``: with keyed per-node feature sampling (sampling.py) the growth
+schedule is semantics-free, so K trees advance one level per pass. On the
+host (the batched engine with the numpy backend) one gathered bincount
+builds every tree's histograms over each node's sampled columns only; the
+device engine carries the tree axis through its level step. On a CUDA
+device "auto" is the cuda backend, so a Random Forest grows there tree by
+tree, every histogram built by the CUDA kernel, as the reference grows one
+on a TPU.
+
+Not ported yet: sparse-oblique splits (raise).
 
 The grower owns node allocation in the Forest SoA and the per-example
 ``node_of`` routing; leaf values come from a caller-provided ``leaf_fn``
@@ -47,13 +55,18 @@ from repro_torch.core.grower_device import (
     device_unsupported_reason,
     grow_trees_device,
 )
-from repro_torch.core.hist_backend import HistogramBackend, resolve_backend
+from repro_torch.core.hist_backend import (
+    HistogramBackend,
+    _unique_stat_columns,
+    resolve_backend,
+)
 from repro_torch.core.sampling import keyed_feature_select, sample_size
 from repro_torch.core.splitters import (
     Split,
     SplitterParams,
     apply_split,
     best_splits,
+    best_splits_gathered,
     build_histogram,
 )
 from repro_torch.core.tree import Forest
@@ -182,15 +195,16 @@ def grow_tree(forest: Forest, t: int, binned: BinnedFeatures, X_raw: np.ndarray,
     return node_of
 
 
-def _lockstep_ok(params: GrowthParams) -> bool:
+def _lockstep_ok(params: GrowthParams, num_lo) -> bool:
     """Lockstep (K trees per level pass) is semantics-free only when growth
     consumes no sequential rng: keyed (or no) feature sampling, no RANDOM
-    categorical trials — and level-wise strategy. The reference's gathered
-    bincount is a host-numpy formulation, so other histogram backends keep
-    the per-tree path."""
+    categorical trials, no oblique projections — and level-wise strategy.
+    The gathered bincount is a host-numpy formulation, so other histogram
+    backends (the CUDA kernel among them) keep the per-tree path."""
     sp = params.splitter
     return (params.growing_strategy == "LOCAL"
             and sp.categorical_algorithm != "RANDOM"
+            and not (sp.oblique and num_lo is not None)
             and (sp.num_candidate_ratio >= 1.0
                  or params.feature_sampling == "keyed")
             and resolve_backend(params.histogram_backend,
@@ -202,13 +216,13 @@ def grow_trees(forest: Forest, ts, binned: BinnedFeatures, X_raw: np.ndarray,
                num_lo=None, num_hi=None, block: int | None = None
                ) -> np.ndarray:
     """Grow a block of independent trees (Random Forest §3.6). With the
-    "device" engine the whole block advances one LEVEL at a time (tree axis
-    through the frontier state); otherwise trees grow sequentially. The
-    reference's host lockstep path (the "batched" engine on numpy under
-    ``_lockstep_ok``) is not ported yet and raises. ``block`` is the NOMINAL
-    block width (e.g. tree_parallelism): the device engine pads a short
-    final block up to it. Returns per-tree final routing, (len(ts), N)
-    int32."""
+    "device" engine or the lockstep host path (the "batched" engine on the
+    numpy backend) the whole block advances one LEVEL at a time (tree axis
+    through the frontier state); otherwise trees grow sequentially. All
+    three produce identical forests when the sampling policy is keyed, so
+    blocking is purely an execution choice. ``block`` is the NOMINAL block
+    width (e.g. tree_parallelism): the device engine pads a short final
+    block up to it. Returns per-tree final routing, (len(ts), N) int32."""
     _check_ported(params)
     engine, _ = resolve_engine(params, binned)
     if engine == "device" and params.growing_strategy == "LOCAL":
@@ -217,12 +231,16 @@ def grow_trees(forest: Forest, ts, binned: BinnedFeatures, X_raw: np.ndarray,
             forest.n_nodes[t] = 1
         return grow_trees_device(forest, ts, binned, stats_list, actives,
                                  leaf_fn, params, block=block or len(ts))
-    if engine == "batched" and _lockstep_ok(params) and len(ts) > 1:
-        raise YdfError(
-            "Lockstep growth of a block of trees on the host (the batched "
-            "engine's Random Forest path) is not ported yet (ROADMAP A8). "
-            "Solutions: (1) use growth_engine='device', (2) grow one tree at "
-            "a time.")
+    if (engine == "batched" and _lockstep_ok(params, num_lo)
+            and len(ts) > 1):
+        node_of = np.stack([np.where(a, 0, -1).astype(np.int32)
+                            for a in actives])
+        for b, t in enumerate(ts):
+            forest.leaf_value[t, 0] = leaf_fn(stats_list[b][actives[b]].sum(0))
+            forest.n_nodes[t] = 1
+        _grow_level_wise_lockstep(forest, ts, binned, stats_list, node_of,
+                                  params, leaf_fn)
+        return node_of
     params_seq = (params if engine == params.engine
                   else dataclasses.replace(params, engine=engine))
     return np.stack([
@@ -485,6 +503,141 @@ def _grow_best_first_batched(forest, t, binned, X_raw, stats, node_of, params,
                 counter += 1
                 stash(child, child_idx[child], hists[child])
     return depth
+
+
+def _grow_level_wise_lockstep(forest, ts, binned, stats_list, node_of,
+                              params, leaf_fn) -> None:
+    """Level-wise growth of K independent trees in lockstep (DESIGN.md §6.3).
+
+    The frontier spans (tree, node) slots; one gathered bincount accumulates
+    every tree's histograms and one gathered scan finds every best split.
+    Because per-node candidate features are KEYED (sampling.py) and only the
+    sampled columns are gathered, the histogram+scan cost is ``k/F`` of the
+    full-matrix pass (k = sqrt(F) under the Breiman rule) — the optimization
+    that makes Random Forest growth pay, single tree or lockstep.
+
+    Requires _lockstep_ok (no sequential rng in growth): under that
+    precondition the result is bit-identical to growing the trees one at a
+    time with the oracle engine (tested in tests/test_torch_rf.py).
+    """
+    sp = params.splitter
+    K = len(ts)
+    F = binned.n_features
+    B = 256
+    codes = binned.codes
+    sample = sp.num_candidate_ratio < 1.0
+    kf = sample_size(sp.num_candidate_ratio, F) if sample else F
+    stats64 = [np.ascontiguousarray(s, np.float64) for s in stats_list]
+    S = stats64[0].shape[1]
+    frontiers: list[list[int]] = [[0] for _ in ts]
+    depths = [0] * K
+    ident = np.broadcast_to(np.arange(F, dtype=np.int32), (1, F))
+    for level in range(params.max_depth):
+        n_slots_k = [len(f) for f in frontiers]
+        n_slots = sum(n_slots_k)
+        if n_slots == 0:
+            break
+        base = np.concatenate([[0], np.cumsum(n_slots_k)]).astype(np.int64)
+        if sample:
+            feat_sel = np.concatenate(
+                [keyed_feature_select(params.sampling_key, int(ts[k]),
+                                      np.asarray(frontiers[k], np.int64), F, kf)
+                 for k in range(K) if n_slots_k[k]])
+        else:
+            feat_sel = np.broadcast_to(ident, (n_slots, F))
+        # -- gather each tree's frontier examples + their sampled codes
+        ex_k: list = [None] * K
+        slot_k: list = [None] * K                 # local slot per example
+        for k in range(K):
+            if not n_slots_k[k]:
+                continue
+            slotmap = np.full(forest.max_nodes, -1, np.int32)
+            slotmap[np.asarray(frontiers[k])] = np.arange(n_slots_k[k],
+                                                          dtype=np.int32)
+            sl = np.where(node_of[k] >= 0,
+                          slotmap[np.maximum(node_of[k], 0)], -1)
+            ex = np.where(sl >= 0)[0]
+            ex_k[k], slot_k[k] = ex, sl[ex]
+        ex_all = np.concatenate([e for e in ex_k if e is not None])
+        gslot = np.concatenate([slot_k[k] + base[k] for k in range(K)
+                                if ex_k[k] is not None]).astype(np.int64)
+        codes_sel = codes[ex_all[:, None], feat_sel[gslot]]      # (n_ex, kf)
+        wstats = np.concatenate([stats64[k][ex_k[k]] for k in range(K)
+                                 if ex_k[k] is not None])
+        # -- one flattened bincount over (slot, candidate, bin) buckets; per
+        # bucket the accumulation order stays example-ascending within one
+        # tree, bit-identical to the per-tree numpy backend
+        with trace.span("grower/hist_build", level=level, lockstep=K,
+                        frontier=n_slots):
+            flat = ((gslot[:, None] * kf + np.arange(kf)[None]) * B
+                    + codes_sel).ravel()
+            uniq, inv = _unique_stat_columns(wstats)
+            strips = [np.bincount(flat, weights=np.repeat(wstats[:, s], kf),
+                                  minlength=n_slots * kf * B
+                                  ).reshape(n_slots, kf, B) for s in uniq]
+            hist = np.empty((n_slots, kf, B, S), np.float32)
+            for s in range(S):
+                hist[..., s] = strips[inv[s]]
+        with trace.span("grower/gain_scan", level=level, lockstep=K,
+                        frontier=n_slots):
+            splits = best_splits_gathered(hist, feat_sel, binned, sp)
+        # -- per tree: allocate children, route, child stats, prune
+        _route_ctx = trace.span("grower/routing", level=level, lockstep=K)
+        _route_ctx.__enter__()
+        for k in range(K):
+            n_k = n_slots_k[k]
+            if not n_k:
+                continue
+            t = ts[k]
+            spl = splits[base[k]:base[k + 1]]
+            left_of = np.full(n_k, -1, np.int32)
+            for i, node in enumerate(frontiers[k]):
+                s = spl[i]
+                if not s.valid or forest.n_nodes[t] + 2 > params.max_nodes:
+                    continue
+                left_of[i] = int(forest.n_nodes[t])
+                forest.n_nodes[t] += 2
+                _set_split(forest, t, node, s, binned)
+                forest.left_child[t, node] = left_of[i]
+                depths[k] = level + 1
+            split_slots = np.where(left_of >= 0)[0]
+            if not len(split_slots):
+                frontiers[k] = []
+                continue
+            feat = np.array([s.feature for s in spl], np.int32)
+            table = np.zeros((n_k, 256), bool)
+            for i in split_slots:
+                s = spl[i]
+                if s.cat_right is not None:
+                    table[i, s.cat_right] = True
+                else:
+                    table[i, s.split_bin:] = True
+            m = left_of[slot_k[k]] >= 0
+            ex, sl = ex_k[k][m], slot_k[k][m]
+            go = table[sl, codes[ex, np.maximum(feat[sl], 0)]]
+            node_of[k][ex] = left_of[sl] + go
+            ci_of = np.full(n_k, -1, np.int64)
+            ci_of[split_slots] = np.arange(len(split_slots))
+            child_code = 2 * ci_of[sl] + go
+            n_child = 2 * len(split_slots)
+            csum = np.bincount(
+                (child_code[:, None] * S + np.arange(S)).ravel(),
+                weights=np.ascontiguousarray(stats64[k][ex]).ravel(),
+                minlength=n_child * S).reshape(n_child, S)
+            keep = csum[:, -1] >= 2 * sp.min_examples
+            nf = []
+            for ci, i in enumerate(split_slots):
+                left = int(left_of[i])
+                forest.leaf_value[t, left] = leaf_fn(csum[2 * ci])
+                forest.leaf_value[t, left + 1] = leaf_fn(csum[2 * ci + 1])
+                if keep[2 * ci]:
+                    nf.append(left)
+                if keep[2 * ci + 1]:
+                    nf.append(left + 1)
+            frontiers[k] = nf
+        _route_ctx.__exit__(None, None, None)
+    for d in depths:
+        forest.depth = max(forest.depth, d)
 
 
 # =====================================================================

@@ -1,6 +1,6 @@
 """Hyper-parameters with paper-exact defaults (App. C.1) and versioned
-templates (§3.11), the port's copy of the GBT part of
-``repro.core.hparams``: defaults never change; newer methods are opt-in;
+templates (§3.11), the port's copy of the GBT, Random Forest and CART parts
+of ``repro.core.hparams``: defaults never change; newer methods are opt-in;
 templates like ``benchmark_rank1@v1`` bundle the best-known settings per
 version.
 """
@@ -40,6 +40,43 @@ class GBTHparams:
     # -- ranking (task=RANKING, DESIGN.md §12.1): LambdaMART pairwise loss
     ranking_group: str = "group"            # group/query column name
     ndcg_truncation: int = 5                # the k in the |ΔNDCG@k| weights
+
+
+@dataclass(frozen=True)
+class RFHparams:
+    num_trees: int = 300
+    # -- App C.1 "Random Forest default hyper-parameters"
+    categorical_algorithm: str = "CART"
+    growing_strategy: str = "LOCAL"
+    max_depth: int = 16
+    min_examples: int = 5
+    num_candidate_attributes: str = "SQRT"  # Breiman rule of thumb | "ALL" | float ratio
+    split_axis: str = "AXIS_ALIGNED"
+    sparse_oblique_normalization: str = "MIN_MAX"
+    sparse_oblique_num_projections_exponent: float = 1.0
+    # non-C.1 plumbing
+    bootstrap: bool = True
+    winner_take_all: bool = True
+    compute_oob: bool = True
+    max_num_nodes: int = 4096
+    max_bins: int = 255
+    growth_engine: str = "batched"          # batched | oracle | device (§6)
+    histogram_backend: str = "auto"         # auto | numpy | simple | cuda | torch
+    # trees grown per lockstep block (grower.grow_trees). Execution-only:
+    # forests are bit-identical for any value (keyed feature sampling).
+    tree_parallelism: int = 8
+
+
+@dataclass(frozen=True)
+class CartHparams:
+    max_depth: int = 16
+    min_examples: int = 5
+    categorical_algorithm: str = "CART"
+    validation_ratio: float = 0.1           # for pruning
+    max_num_nodes: int = 4096
+    max_bins: int = 255
+    growth_engine: str = "batched"          # batched | oracle | device (§6)
+    histogram_backend: str = "auto"         # auto | numpy | simple | cuda | torch
 
 
 # ---------------------------------------------------------------- templates

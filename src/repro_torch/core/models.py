@@ -3,8 +3,9 @@
 
 A ``DecisionForestModel`` holds a Forest SoA, the training DataSpec and
 feature list, and routes ``predict`` through a compiled predictor
-(core/engines.py). Models come from the port's learners (core/gbt.py) or
-from the JAX package through ``repro_torch.convert``.
+(core/engines.py). Models come from the port's learners (core/gbt.py,
+core/rf.py, core/cart.py) or from the JAX package through
+``repro_torch.convert``.
 ``prepare_train_data`` turns a raw dataset into the binned codes, raw
 matrix and labels a learner trains on (host numpy, as in the reference).
 """
@@ -182,11 +183,19 @@ class RandomForestModel(DecisionForestModel):
     def __init__(self, *, winner_take_all: bool = True, **kw):
         super().__init__(**kw)
         self.winner_take_all = winner_take_all
+        # what regenerates the bootstrap bags of a trained Random Forest:
+        # seed, n_rows, num_trees and a fingerprint of the training data
+        # (core/rf.py); None for a model without out-of-bag evaluation
+        self.bag_info: dict | None = None
 
     def _compile_finalize(self):
         return _RfFinalize(self.winner_take_all and
                            self.task == Task.CLASSIFICATION,
                            self.task == Task.REGRESSION)
+
+
+class CartModel(RandomForestModel):
+    pass
 
 
 @dataclass

@@ -11,9 +11,9 @@ engines (core/grower.py) scan the histograms that a backend
 
 Feature-type modules: numerical (ordered-bin scan), categorical CART
 (Fisher-ordered prefix scan), categorical RANDOM (random-set projections,
-Breiman) and one-hot (single category vs rest). Not ported yet: the
-lockstep Random Forest scan ``best_splits_gathered`` (ROADMAP A8), sparse
-oblique projections and the exact in-sorting splitter.
+Breiman), one-hot (single category vs rest), and the gathered scan of the
+Random Forest lockstep path (``best_splits_gathered``). Not ported yet:
+sparse oblique projections and the exact in-sorting splitter.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch.core.api import YdfError
 from repro_torch.core.binning import BinnedFeatures
 from repro_torch.core.hist_backend import HistogramBackend, resolve_backend
 
@@ -210,6 +211,115 @@ def best_splits(hist: np.ndarray, binned: BinnedFeatures, params: SplitterParams
             out.append(Split(gain=gain, feature=j, split_bin=sb,
                              threshold=binned.threshold_value(j, sb)))
     return out
+
+
+def best_splits_gathered(hist: np.ndarray, feat_sel: np.ndarray,
+                         binned: BinnedFeatures, params: SplitterParams
+                         ) -> list[Split]:
+    """Best split per node from per-node GATHERED candidate columns.
+
+    hist: (n_nodes, kf, B, S) f32 — histogram of only the kf sampled features
+    of each node; feat_sel: (n_nodes, kf) int32 original column ids, sorted
+    ascending. Bit-identical to ``best_splits`` on the full (n, F, B, S)
+    histogram under the matching feature mask: the same f32 values are
+    computed for exactly the sampled (node, feature) pairs, and the argmax
+    over ascending-sorted candidates breaks ties toward the lowest feature
+    index just like the masked full-matrix argmax (tested). RANDOM
+    categorical trials draw from the rng stream and are not supported here —
+    callers (the lockstep/device paths) exclude them.
+
+    Numerical and categorical pairs are compacted into two flat lists before
+    scanning, so the scan cost is O(sampled pairs), not O(nodes * F).
+    """
+    n_nodes, kf, B, S = hist.shape
+    kind, l2 = params.stat_kind, params.l2
+    if params.categorical_algorithm == "RANDOM":
+        raise YdfError("best_splits_gathered does not support "
+                       "categorical_algorithm='RANDOM' (stream rng draws).")
+    parent = hist.sum(axis=2)                       # (n, kf, S)
+    parent_score = _score(parent, kind, l2)
+    gains = np.full((n_nodes, kf), NEG_INF, np.float64)
+    best_bin = np.zeros((n_nodes, kf), np.int32)
+    is_cat_sel = binned.is_cat[feat_sel]            # (n, kf)
+    pair_row = np.full((n_nodes, kf), -1, np.int64)
+
+    pn = np.nonzero(~is_cat_sel)
+    if len(pn[0]):
+        h = hist[pn]                                # (m, B, S)
+        cum = np.cumsum(h, axis=1)
+        left = cum[:, :-1]
+        right = parent[pn][:, None, :] - left
+        g = (_score(left, kind, l2) + _score(right, kind, l2)
+             - parent_score[pn][:, None])
+        ok = ((_counts(left, kind) >= params.min_examples)
+              & (_counts(right, kind) >= params.min_examples))
+        g = np.where(ok, g, NEG_INF)
+        bi = np.argmax(g, axis=1)
+        gains[pn] = np.take_along_axis(g, bi[:, None], 1)[:, 0]
+        best_bin[pn] = bi + 1
+
+    pc = np.nonzero(is_cat_sel)
+    one_hot = params.categorical_algorithm == "ONE_HOT" or (
+        kind == "class" and S > 3)
+    cat_bi = cat_order = cat_nb = None
+    if len(pc[0]):
+        fc = feat_sel[pc]
+        nb = binned.n_bins[fc].astype(np.int64)     # (m,)
+        Bmax = int(nb.max())
+        hf = hist[pc][:, :Bmax]                     # (m, Bmax, S)
+        par, ps = parent[pc], parent_score[pc]
+        if one_hot:
+            left = par[:, None, :] - hf
+            g = (_score(hf, kind, l2) + _score(left, kind, l2) - ps[:, None])
+            ok = ((_counts(hf, kind) >= params.min_examples)
+                  & (_counts(left, kind) >= params.min_examples)
+                  & (np.arange(Bmax)[None] < nb[:, None]))
+            g = np.where(ok, g, NEG_INF)
+            cat_bi = np.argmax(g, axis=1)
+            gains[pc] = np.take_along_axis(g, cat_bi[:, None], 1)[:, 0]
+            pair_row[pc] = np.arange(len(fc))
+        elif Bmax >= 2:
+            pad = np.arange(Bmax)[None] >= nb[:, None]
+            key = np.where(pad, np.inf, _order_key(hf, kind))
+            cat_order = np.argsort(key, axis=1, kind="stable")
+            hs = np.take_along_axis(hf, cat_order[..., None], axis=1)
+            cum = np.cumsum(hs, axis=1)[:, :-1]
+            right = par[:, None, :] - cum
+            g = (_score(cum, kind, params.l2) + _score(right, kind, params.l2)
+                 - ps[:, None])
+            ok = ((_counts(cum, kind) >= params.min_examples)
+                  & (_counts(right, kind) >= params.min_examples)
+                  & (np.arange(Bmax - 1)[None] < nb[:, None] - 1))
+            g = np.where(ok, g, NEG_INF)
+            cat_bi = np.argmax(g, axis=1)
+            gains[pc] = np.take_along_axis(g, cat_bi[:, None], 1)[:, 0]
+            cat_nb = nb
+            pair_row[pc] = np.arange(len(fc))
+
+    out: list[Split] = []
+    for i in range(n_nodes):
+        j = int(np.argmax(gains[i]))
+        gain = float(gains[i, j])
+        floor = float(gain_floor(params.min_gain, parent_score[i, j]))
+        if gain <= floor or gain <= NEG_INF or not np.isfinite(gain):
+            out.append(Split())
+            continue
+        f = int(feat_sel[i, j])
+        if is_cat_sel[i, j]:
+            r = int(pair_row[i, j])
+            if one_hot:
+                payload = ("onehot", int(cat_bi[r]))
+            else:
+                payload = ("cart", cat_order[r], int(cat_bi[r]),
+                           int(cat_nb[r]))
+            out.append(Split(gain=gain, feature=f,
+                             cat_right=_materialize_cat(payload)))
+        else:
+            sb = int(best_bin[i, j])
+            out.append(Split(gain=gain, feature=f, split_bin=sb,
+                             threshold=binned.threshold_value(f, sb)))
+    return out
+
 
 
 def _materialize_cat(payload) -> np.ndarray:

@@ -12,7 +12,9 @@ The library's name carries a hash of the source, the headers beside it
 source or header is rebuilt and processes that share the checkout reuse one
 build.
 Each kernel's wrapper loads its library with ``ctypes.CDLL`` once per
-process. Nothing here runs at import time. A failed build raises ``RuntimeError``
+process. ``SOURCES`` lists every kernel source of the port, and
+``build_all`` builds them together, one nvcc process each. Nothing here
+runs at import time. A failed build raises ``RuntimeError``
 with nvcc's output: a kernel that does not build is a fault of the
 program, never an engine failure to degrade around.
 """
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -30,6 +33,13 @@ from repro_torch.obs import clock
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+_KERNELS = Path(__file__).resolve().parent
+SOURCES = tuple(_KERNELS / p for p in (
+    "forest_infer/csrc/forest_infer.cu",     # B2, tiled traversal
+    "forest_infer/csrc/forest_single.cu",    # B4, single-tree traversal
+    "histogram/csrc/fused_split.cu",         # B1, split search
+    "histogram/csrc/histogram.cu",           # B3, histograms
+))
 
 
 @dataclass(frozen=True)
@@ -82,3 +92,10 @@ def build(source: Path) -> BuildResult:
             f"{log}")
     os.replace(tmp, lib)   # atomic: a concurrent builder sees all or nothing
     return BuildResult(lib, seconds, log)
+
+
+def build_all() -> dict[Path, BuildResult]:
+    """Build every source of ``SOURCES``, one nvcc process each, all started
+    together. Raises the first build's RuntimeError after all have ended."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))

@@ -30,25 +30,17 @@
 // 16-byte record so a round is one load, and fusing the inv_order take and
 // the GBT sum into the kernel so only (N, out_dim) leaves the device.
 //
-// Categorical codes follow numpy's float32 -> int64 cast, which the
-// reference CPU engines use: NaN, +-inf and |x| >= 2^63 become INT64_MIN,
-// which the clip to [0, 255] makes 0. A plain (long long)x would saturate
-// +inf to INT64_MAX (code 255) and map NaN to 0, so the rule is written
-// out in cat_code.
+// A round, and numpy's category cast, are in traverse.cuh, shared with the
+// single-tree kernel (forest_single.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "traverse.cuh"
+
 namespace {
 
-constexpr int kMaskWords = 8;
 constexpr int kThreadsPerBlock = 256;
-
-__device__ __forceinline__ int cat_code(float x) {
-  if (isnan(x) || x >= 9223372036854775808.0f || x < -9223372036854775808.0f)
-    return 0;
-  return static_cast<int>(fminf(fmaxf(x, 0.0f), 255.0f));
-}
 
 __global__ void forest_infer_tiled_kernel(
     const float* __restrict__ X, int N, int F,
@@ -65,26 +57,8 @@ __global__ void forest_infer_tiled_kernel(
   const float* x = X + n * F;
   const int depth = __ldg(block_depth + b);
 
-  int node = 0;
-  for (int r = 0; r < depth; ++r) {
-    const long long at = base + node;
-    const int child = __ldg(left_child + at);
-    if (child < 0) break;  // at a leaf: the reference self-loops here
-    const float v = x[max(__ldg(feature + at), 0)];
-    const uint4* w = reinterpret_cast<const uint4*>(cat_mask + at * kMaskWords);
-    const uint4 lo = __ldg(w), hi = __ldg(w + 1);
-    const bool is_cat = (lo.x | lo.y | lo.z | lo.w | hi.x | hi.y | hi.z | hi.w) != 0u;
-    int go;
-    if (is_cat) {
-      const int code = cat_code(v);
-      const uint32_t word = __ldg(cat_mask + at * kMaskWords + (code >> 5));
-      go = static_cast<int>((word >> (code & 31)) & 1u);
-    } else {
-      go = v >= __ldg(threshold + at) ? 1 : 0;
-    }
-    node = child + go;
-  }
-
+  const int node = forest_traverse::walk(x, base, depth, feature, threshold,
+                                         cat_mask, left_child);
   const float* leaf = leaf_value + (base + node) * O;
   float* dst = out + (n * gridDim.y * TB + slot) * O;
   for (int o = 0; o < O; ++o) dst[o] = __ldg(leaf + o);

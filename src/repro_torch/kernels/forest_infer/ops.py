@@ -2,15 +2,20 @@
 
 A compiled forest is uploaded to its device ONCE: ``forest_predict`` keeps
 a small id-keyed cache mapping a live Forest to its tables on each device —
-(a) the raw SoA (the "ref" impl) and (b) the depth-packed layout (the
-"cuda" impl) — so repeat predictions do no host-to-device table transfers
-and no re-packing. Entries are validated against a weakref (id reuse after
+(a) the raw SoA (the "single" and "ref" impls) and (b) the depth-packed
+layout (the "cuda" impl) — so repeat predictions do no host-to-device table
+transfers and no re-packing. Entries are validated against a weakref (id reuse after
 GC cannot alias), evicted the moment the forest is collected, and LRU-capped.
 
 impls:
   * "cuda" — the traversal kernel over the depth-packed layout
     (``forest_infer.forest_predict_tiled``). On a CUDA device it launches
     the kernel or raises; on the CPU it runs the kernel's plain version.
+  * "single" — the single-tree-per-block traversal kernel over the raw
+    SoA at the forest's global depth (``forest_infer.forest_predict_single``,
+    the port of the reference's ``impl="pallas_single"``). On a CUDA device
+    it launches the kernel or raises; on the CPU it runs the kernel's plain
+    version, which is the "ref" impl.
   * "ref"  — the plain PyTorch gather traversal over the raw SoA
     (``ref.forest_predict_ref``), on either device.
 """
@@ -25,9 +30,13 @@ import torch
 
 from repro_torch.core.api import YdfError
 from repro_torch.core.tree import Forest, pack_by_depth
-from repro_torch.kernels.forest_infer.forest_infer import forest_predict_tiled
+from repro_torch.kernels.forest_infer.forest_infer import (
+    forest_predict_single,
+    forest_predict_tiled,
+)
 from repro_torch.kernels.forest_infer.ref import forest_predict_ref
 
+IMPLS = ("cuda", "single", "ref")
 _CACHE: "OrderedDict[int, tuple]" = OrderedDict()
 _CACHE_CAP = 8
 
@@ -99,13 +108,24 @@ def _check_device(device: torch.device) -> None:
             "CUDA device; pass device='cpu' to run on the CPU.")
 
 
+def _check_children(left_child: np.ndarray, max_nodes: int) -> None:
+    if (left_child >= max_nodes - 1).any():
+        raise YdfError(
+            "The forest has a child index outside its node capacity "
+            f"({max_nodes}); its SoA is corrupt. Rebuild or re-convert "
+            "the model.")
+
+
 def device_soa(forest: Forest, device) -> DeviceSoA:
-    """Raw Forest SoA on ``device``, uploaded once per (forest, device)."""
+    """Raw Forest SoA on ``device``, uploaded once per (forest, device).
+    Checks the single-tree kernel's precondition on the host: children
+    inside the node capacity."""
     device = torch.device(device)
     c = _forest_cache(forest)
     key = ("soa", str(device))
     if key not in c:
         _check_device(device)
+        _check_children(forest.left_child, forest.max_nodes)
         up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         c[key] = DeviceSoA(
             up(forest.feature.astype(np.int32)),
@@ -127,11 +147,7 @@ def device_packed(forest: Forest, device) -> DevicePacked:
     if key not in c:
         _check_device(device)
         p = pack_by_depth(forest)
-        if (p.left_child >= p.max_nodes - 1).any():
-            raise YdfError(
-                "The forest has a child index outside its node capacity "
-                f"({p.max_nodes}); its SoA is corrupt. Rebuild or re-convert "
-                "the model.")
+        _check_children(p.left_child, p.max_nodes)
         up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         c[key] = DevicePacked(
             up(p.feature), up(p.threshold), up(_mask_words(p.cat_mask)),
@@ -148,8 +164,9 @@ def forest_predict(forest: Forest, X, impl: str = "cuda",
     order. Unknown impls and too-narrow X raise ``ValueError``/``YdfError``
     (caller errors); kernel faults propagate as they are, and the compiled
     predictor lets them propagate too (no chain serves around them)."""
-    if impl not in ("cuda", "ref"):
-        raise ValueError(f"unknown impl {impl!r}; expected 'cuda' or 'ref'")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of "
+                         f"{', '.join(map(repr, IMPLS))}")
     device = torch.device(device)
     tabs = device_packed(forest, device) if impl == "cuda" \
         else device_soa(forest, device)      # raises on cuda without a card
@@ -164,5 +181,7 @@ def forest_predict(forest: Forest, X, impl: str = "cuda",
             f"(N, >= {tabs.min_features}) columns.")
     if impl == "ref":
         return forest_predict_ref(Xd, *tabs[:5], depth=int(forest.depth))
+    if impl == "single":
+        return forest_predict_single(Xd, *tabs[:5], depth=int(forest.depth))
     out = forest_predict_tiled(Xd, *tabs.tables)
     return torch.index_select(out, 1, tabs.inv_order)

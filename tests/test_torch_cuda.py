@@ -13,7 +13,11 @@ within REL_GAIN_EPS * |score(parent)| + 1e-6 * |gain| of the plain
 version's, the same split wherever the plain runner-up is clearly below),
 and the same bits over three launches; the histogram kernel the rule of
 ``chip_smoke.check_hist_case`` (the count channel equal, the rest within
-rtol 1e-6 + 1e-6 * the stat's max |v|), and the same bits over launches.
+rtol 1e-6 + 1e-6 * the stat's max |v|), and the same bits over launches;
+the single-tree traversal kernel none (``torch.equal`` against its plain
+version, ``array_equal`` against ``predict_naive``). A Random Forest and a
+CART tree trained on the card equal the CPU's on every forest field (their
+stats are integer counts, so every histogram cell is exact).
 """
 from __future__ import annotations
 
@@ -247,3 +251,95 @@ def test_default_gbt_on_the_card_builds_every_histogram_with_the_kernel(
     X = BatchEncoder(model.spec, model.features).encode(rows)
     want = model._compile_finalize()(predict_naive(model.forest, X))
     assert np.array_equal(model.predict(rows, engine="cuda", device=cuda), want)
+
+
+# ------------------------------------------ single-tree traversal (B4)
+
+@pytest.mark.parametrize("n", [0, 1, 7, 255, 2049])
+def test_single_kernel_equals_plain_version_on_the_default_gbt(cuda, n):
+    import chip_smoke
+    model = chip_smoke.build_default_gbt()
+    chip_smoke.check_single_case(model.forest,
+                                 chip_smoke.encoded_inputs(n, seed=n), cuda)
+
+
+def test_single_kernel_zoo_and_wide_forests(cuda):
+    """The hand-built zoo (mask words float32 cannot hold, codes 0, 31, 32
+    and 255, hostile values, stumps, 0 rows) and a random forest of M > 128
+    nodes with 3-wide leaves."""
+    import chip_smoke
+    from repro_torch.kernels.forest_infer import forest_infer
+    before = forest_infer.SINGLE_LAUNCHES
+    r = chip_smoke.check_single(chip_smoke.single_zoo(), cuda)
+    assert r["max_abs_err"] == 0.0
+    assert forest_infer.SINGLE_LAUNCHES == before + 2     # 0 rows: none
+    f = _forest(37, 700, 9, 3, seed=4, cat_feats=(1, 5))
+    chip_smoke.check_single_case(f, _hostile(300, 9, seed=5, cat_feats=(1, 5)),
+                                 cuda)
+
+
+def test_single_counts_launches_and_never_takes_the_plain_version(
+        cuda, monkeypatch):
+    import chip_smoke
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    monkeypatch.setattr(forest_infer, "forest_predict_ref", _refuse)
+    model = chip_smoke.build_default_gbt()
+    X = chip_smoke.encoded_inputs(100, seed=2)
+    soa = ops.device_soa(model.forest, cuda)
+    before = forest_infer.SINGLE_LAUNCHES
+    forest_infer.forest_predict_single(torch.from_numpy(X).to(cuda), *soa[:5],
+                                       depth=model.forest.depth)
+    ops.forest_predict(model.forest, X, "single", cuda)
+    torch.cuda.synchronize()
+    assert forest_infer.SINGLE_LAUNCHES == before + 2
+
+
+def test_single_refuses_more_trees_than_a_grid_axis_holds(cuda):
+    from repro_torch.kernels.forest_infer import forest_infer
+    T = 65536
+    X = torch.zeros((4, 2), device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="65535"):
+        forest_infer.forest_predict_single(
+            X, torch.full((T, 1), -1, **i32), torch.zeros((T, 1), device=cuda),
+            torch.zeros((T, 1, 8), **i32), torch.full((T, 1), -1, **i32),
+            torch.zeros((T, 1, 1), device=cuda), depth=1)
+
+
+# ------------------------------------- Random Forest and CART on the card
+
+def test_random_forest_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """The default Random Forest, short: every level histogram built by the
+    kernel (launches == builds), the forest equal to the CPU's lockstep
+    block on every field, and served through both traversal kernels."""
+    import chip_smoke
+    from repro_torch.core.hist_backend import resolve_backend
+    from repro_torch.kernels.forest_infer import ops
+    from repro_torch.kernels.histogram import histogram
+    monkeypatch.setattr(histogram, "histogram_f32_ref", _refuse)
+    backend = resolve_backend("auto", cuda)
+    data = chip_smoke.higgs_like(5_000)
+    launches, builds = histogram.LAUNCHES, backend.builds
+    card = chip_smoke.train_rf(data, cuda, num_trees=3)
+    assert card.training_logs["histogram_backend"] == "cuda"
+    builds = backend.builds - builds
+    assert builds > 0 and histogram.LAUNCHES - launches == builds
+    cpu = chip_smoke.train_rf(data, "cpu", num_trees=3)
+    assert chip_smoke.identical(card, cpu)
+    assert card.self_evaluation.metrics == cpu.self_evaluation.metrics
+    rows = {k: v[:400] for k, v in data.items() if k != "label"}
+    from repro_torch.core.dataspec import BatchEncoder
+    X = BatchEncoder(card.spec, card.features).encode(rows)
+    chip_smoke.check_single_case(card.forest, X, cuda)
+    assert torch.equal(ops.forest_predict(card.forest, X, "single", cuda),
+                       ops.forest_predict(card.forest, X, "cuda", cuda))
+
+
+def test_cart_on_the_card_equals_the_cpu(cuda):
+    import chip_smoke
+    data = chip_smoke.higgs_like(5_000)
+    card = chip_smoke.train_cart(data, cuda)
+    cpu = chip_smoke.train_cart(data, "cpu")
+    assert card.training_logs["histogram_backend"] == "cuda"
+    assert chip_smoke.identical(card, cpu)
+

@@ -11,6 +11,13 @@ Hostile numerics (NaN, +-inf, huge values in categorical columns) are held
 to ``predict_naive`` only: the interpret-mode kernel clips in float before
 its cast, a divergence of the reference recorded in ROADMAP.md (C).
 Interpret-mode batches stay at 64 rows or fewer.
+
+The single-tree kernel (``impl="single"``, the port of
+``forest_predict_pallas``) is held to the interpret-mode Pallas kernel only
+on finite inputs of forests whose mask words float32 holds exactly: that
+kernel carries each uint32 word through float32 and loses the low bits of
+a word such as 0x80000001 (ROADMAP.md C; one test pins it). Everywhere it
+is held to ``predict_naive``, bit for bit.
 """
 from __future__ import annotations
 
@@ -18,8 +25,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.tree import empty_forest as ref_empty_forest
 from repro.core.tree import pack_by_depth as ref_pack_by_depth
 from repro.core.tree import predict_naive as ref_predict_naive
+from repro.kernels.forest_infer.forest_infer import (
+    forest_predict_pallas as ref_forest_predict_pallas,
+)
 from repro.kernels.forest_infer.ops import forest_predict as ref_forest_predict
 from repro_torch import convert
 from repro_torch.core import tree as port_tree
@@ -78,6 +89,7 @@ def port_paths(pf, X):
         "vectorized": port_tree.compile_predict_raw(pf)(X),
         "packed_plain": ops.forest_predict(pf, X, "cuda", CPU).numpy(),
         "soa_plain": ops.forest_predict(pf, X, "ref", CPU).numpy(),
+        "single_plain": ops.forest_predict(pf, X, "single", CPU).numpy(),
     }
 
 
@@ -160,6 +172,136 @@ def test_packed_plain_honours_block_depth(depth_skewed_forest):
     S = p.trees_per_block
     for b in np.flatnonzero(shallow):
         assert torch.equal(cut[:, b * S:(b + 1) * S], full[:, b * S:(b + 1) * S])
+
+
+# ----------------------------------------- the single-tree kernel (B4)
+
+def _exact_masks(forest):
+    """The forest with every mask word cut to its low 24 bits, which
+    float32 holds exactly (a word left empty makes its node numerical)."""
+    import copy
+    f = copy.deepcopy(forest)
+    f.cat_mask = f.cat_mask & np.uint32(0x00FFFFFF)
+    return f
+
+
+def _interpret_single(forest, X):
+    return np.asarray(ref_forest_predict_pallas(
+        X, forest.feature, forest.threshold, forest.cat_mask,
+        forest.left_child, forest.leaf_value, depth=max(1, forest.depth),
+        interpret=True))
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_single_equals_interpret_kernel_where_the_reference_is_exact(
+        request, name):
+    forest = _exact_masks(_zoo(request, name))
+    X = inputs(forest, 48, seed=21)
+    want = _interpret_single(forest, X)
+    assert np.array_equal(want, ref_predict_naive(forest, X))
+    got = ops.forest_predict(to_port(forest), X, "single", CPU).numpy()
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("learner", ["rf", "cart"])
+def test_single_equals_predict_naive_on_trained_models(tiny_adult, learner):
+    """The port's trained Random Forest and CART tree (categorical splits
+    on the Adult-like columns), hostile rows included."""
+    from repro_torch.core.cart import CartLearner
+    from repro_torch.core.rf import RandomForestLearner
+    if learner == "rf":
+        m = RandomForestLearner(label="income", num_trees=4, max_depth=8,
+                                device="cpu").train(tiny_adult)
+    else:
+        m = CartLearner(label="income", device="cpu").train(tiny_adult)
+    pf = m.forest
+    assert pf.cat_mask.any(), "no categorical split to exercise"
+    X = inputs(pf, 80, seed=3, hostile=True)
+    got = ops.forest_predict(pf, X, "single", CPU).numpy()
+    assert np.array_equal(got, port_tree.predict_naive(pf, X))
+
+
+def test_single_pins_the_reference_mask_word_divergence():
+    """One tree, its root categorical on column 0 with the mask word
+    0x80000001 (codes 0 and 31 go right), leaves 10 (left) and 20 (right).
+    The interpret-mode Pallas kernel rounds the word through float32 to
+    0x80000000 and sends code 0 left; predict_naive and the port do not."""
+    f = ref_empty_forest(1, 4, 1)
+    f.feature[0, 0], f.left_child[0, 0], f.n_nodes[0], f.depth = 0, 1, 3, 1
+    f.cat_mask[0, 0, 0] = np.uint32(0x80000001)
+    f.leaf_value[0, 1:3, 0] = (10.0, 20.0)
+    X = np.array([[0.0], [31.0], [5.0], [1.0]], np.float32)
+    assert _interpret_single(f, X)[:, 0, 0].tolist() == [10, 20, 10, 10]
+    assert ref_predict_naive(f, X)[:, 0, 0].tolist() == [20, 20, 10, 10]
+    got = ops.forest_predict(to_port(f), X, "single", CPU)[:, 0, 0]
+    assert got.tolist() == [20, 20, 10, 10]
+
+
+def test_single_wrapper_zero_rows_and_no_launch_on_cpu(ragged_mixed_forest):
+    soa = ops.device_soa(to_port(ragged_mixed_forest), CPU)
+    X = torch.from_numpy(inputs(ragged_mixed_forest, 9))
+    before = forest_infer.SINGLE_LAUNCHES
+    for n in (0, 9):
+        out = forest_infer.forest_predict_single(
+            X[:n], *soa[:5], depth=ragged_mixed_forest.depth)
+        assert out.shape == (n, ragged_mixed_forest.n_trees, 3)
+    assert forest_infer.SINGLE_LAUNCHES == before    # plain version only
+
+
+@pytest.mark.parametrize("field,bad,exc", [
+    ("X", lambda t: t.double(), TypeError),
+    ("X", lambda t: t[:, :1], ValueError),              # not contiguous
+    ("feature", lambda t: t.long(), TypeError),
+    ("feature", lambda t: t[None], ValueError),
+    ("threshold", lambda t: t[:, :-1].contiguous(), ValueError),
+    ("cat_mask", lambda t: t.float(), TypeError),
+    ("left_child", lambda t: t.float(), TypeError),
+    ("leaf_value", lambda t: t[..., 0].contiguous(), ValueError),
+])
+def test_single_wrapper_rejects_what_the_kernel_does_not_take(
+        all_categorical_forest, field, bad, exc):
+    soa = ops.device_soa(to_port(all_categorical_forest), CPU)
+    args = {"X": torch.from_numpy(inputs(all_categorical_forest, 6)),
+            **dict(zip(("feature", "threshold", "cat_mask", "left_child",
+                        "leaf_value"), soa[:5]))}
+    args[field] = bad(args[field])
+    with pytest.raises(exc):
+        forest_infer.forest_predict_single(**args, depth=3)
+
+
+def test_soa_refuses_children_outside_the_node_capacity(stump_forest):
+    from repro_torch.core.api import YdfError
+    pf = to_port(stump_forest)
+    pf.left_child = pf.left_child.copy()     # the fixture's arrays are shared
+    pf.left_child[0, 0] = pf.max_nodes - 1
+    with pytest.raises(YdfError, match="node capacity"):
+        ops.device_soa(pf, CPU)
+
+
+def test_chip_smoke_single_checks_on_the_cpu():
+    """chip_smoke.py's kernel_single cases on the CPU, where the wrapper
+    takes the plain version: the zoo (mask words 0x80000001 and 0xFFFFFFFF,
+    codes 0/31/32/255, hostile values, stumps, 0 rows) and the default GBT
+    against predict_naive."""
+    import chip_smoke
+    cases = chip_smoke.single_zoo()
+    model = chip_smoke.build_default_gbt()
+    cases["gbt"] = (model.forest, chip_smoke.encoded_inputs(64, 13))
+    r = chip_smoke.check_single(cases, CPU)
+    assert r["max_abs_err"] == 0.0
+    assert r["cases"]["stumps"]["depth"] == 0
+    assert r["cases"]["mixed, 0 rows"]["rows"] == 0
+    mixed, X = cases["mixed"]
+    assert {0x80000001, 0xFFFFFFFF} <= set(mixed.cat_mask.ravel().tolist())
+    assert {0.0, 31.0, 32.0, 255.0} <= set(X[:, 0].tolist())
+
+
+def test_build_list_names_every_kernel_source():
+    from repro_torch.kernels.histogram import fused, histogram
+    assert set(_build.SOURCES) == {forest_infer.SOURCE,
+                                   forest_infer.SINGLE_SOURCE, fused.SOURCE,
+                                   histogram.SOURCE}
+    assert all(p.is_file() for p in _build.SOURCES)
 
 
 # ---------------------------------------------------- categorical code rule

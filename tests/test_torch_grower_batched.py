@@ -165,7 +165,9 @@ def _leaf_mean(s):
 
 def test_sequential_tree_block_equals_reference(adult_binned):
     """A block of three trees with stream feature sampling (one rng per
-    tree) grows tree by tree on the batched engine, as in the reference."""
+    tree) grows tree by tree on the batched engine, as in the reference;
+    with keyed sampling the block grows in lockstep on the host, as in the
+    reference."""
     binned, stats_list, actives = adult_binned
     kw = dict(max_depth=5, max_nodes=64, engine="batched")
     sp = dict(stat_kind="class", num_candidate_ratio=0.5)
@@ -185,8 +187,16 @@ def test_sequential_tree_block_equals_reference(adult_binned):
                               [np.random.default_rng(s) for s in range(3)])
     np.testing.assert_array_equal(pnode, rnode)
     assert_identical(pf, rf)
-    # the reference's host lockstep path (keyed sampling) is not ported yet
+    # the reference's host lockstep path (keyed sampling)
     keyed = dataclasses.replace(gp, feature_sampling="keyed")
-    with pytest.raises(YdfError, match="A8"):
-        grower.grow_trees(pf, [0, 1, 2], pbinned, None, stats_list, actives,
-                          _leaf_mean, keyed, [None] * 3)
+    rf = ref_empty_forest(3, 64, 1, feature_names=binned.names)
+    rnode = ref_grow_trees(rf, [0, 1, 2], binned, None, stats_list, actives,
+                           _leaf_mean,
+                           RefGrowthParams(splitter=RefSplitterParams(**sp),
+                                           feature_sampling="keyed", **kw),
+                           [None] * 3)
+    pf = empty_forest(3, 64, 1, feature_names=binned.names)
+    pnode = grower.grow_trees(pf, [0, 1, 2], pbinned, None, stats_list,
+                              actives, _leaf_mean, keyed, [None] * 3)
+    np.testing.assert_array_equal(pnode, rnode)
+    assert_identical(pf, rf)

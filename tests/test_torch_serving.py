@@ -281,7 +281,7 @@ def test_convert_refuses_what_the_port_does_not_serve(trained):
         convert.model_from_arrays("gbt", arrays, spec, ["no_such_column"],
                                   task="CLASSIFICATION")
     with pytest.raises(YdfError, match="Unknown model kind"):
-        convert.model_from_arrays("cart", arrays, spec, ref_model.features,
+        convert.model_from_arrays("uplift", arrays, spec, ref_model.features,
                                   task="CLASSIFICATION")
 
 
