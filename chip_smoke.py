@@ -32,15 +32,19 @@ JSON line each:
                      batched engine's shapes (N = 90,000, F = 28, gh stats
                      with a duplicated column, 5% inactive rows, n_nodes 1,
                      8 and 32) and on edge cases (ragged N, code 255 in every
-                     column, every row inactive, one row, no row): the count
-                     channel equal, the other stats within the tolerance of
-                     ``check_hist_case``; two launches give the same bits.
+                     column, every row inactive, one row, no row, class
+                     stats of S = 17, 27 and 130, 70,000 nodes, one node
+                     with every row, a hot bin that draws every row): the
+                     count channel equal, the other stats within the
+                     tolerance of ``check_hist_case``; two launches give the
+                     same bits.
   5. kernel_fused  — the split-search kernel against its plain version at
                      the training shapes (N = 90,000, kf = 28, gh stats, every
                      frontier width W = 1 .. 64; class and moment stats at
-                     N = 5,000) and on hostile inputs, under the tie rule of
-                     ``check_fused_case``; three runs of the same inputs
-                     must give the same bits.
+                     N = 5,000) and on hostile inputs (S = 17, 27 and 130,
+                     70,000 slots, one slot with every row, a hot bin), under
+                     the tie rule of ``check_fused_case``; three runs of the
+                     same inputs must give the same bits.
   6. train         — the default GBT trained on the card with the device
                      engine (counts reset just before, read just after: every
                      level step launched the split-search kernel); a 4-tree
@@ -80,6 +84,14 @@ JSON line each:
  13. train_cart    — the default CART tree (batched engine, histogram kernel,
                      host pruning); on COMPARE_ROWS rows the card's tree
                      equals the CPU's on every field.
+ 13b. train_wide   — 26 classes (S = 27) at synth_higgs_like's width
+                     (WIDE: 20,000 rows): the default RF cut to 3 trees of
+                     depth 6 on the batched engine (the histogram kernel,
+                     launches == builds) and on the device engine (the
+                     split-search kernel), and a CART tree of depth 6, each
+                     equal to the CPU's on every forest field (the device
+                     engine: two card runs equal, >= 99.5% of each structure
+                     field as the CPU's).
  14. serve_rf      — the trained forest through the tiled traversal kernel
                      (M = 4,096, depth up to 16), equal to ``predict_naive``.
  15. kernel_single — the single-tree traversal kernel driven through
@@ -98,7 +110,11 @@ JSON line each:
                      ``device_only_ms``), the plain version's time, the bound
                      and, for the histogram kernel, one ``index_add_`` over
                      precomputed flat ids (the library call that computes
-                     its function; no PyTorch call traverses a tree); the
+                     its function; no PyTorch call traverses a tree), and
+                     the kernels launched per call (as the kernel library
+                     counts its launch calls) of B1 and B3, at HIST_TIMED and FUSED_TIMED (the GBT's levels,
+                     the RF's 2,048-node level, 26 classes, the RF device
+                     engine's 512-slot chunks); the
                      serve phase's latency and rows/s (a smoke
                      reading over ~50 requests, server built before the clock
                      starts).
@@ -139,22 +155,36 @@ COMPARE_ROWS, COMPARE_TREES = 20_000, 4
 PROFILE_TREES = 20
 FUSED_N, FUSED_KF, FUSED_WIDTHS = 90_000, 28, (1, 2, 4, 8, 16, 32, 64)
 FUSED_SMALL_N = 5_000
-FUSED_TIMED_WIDTHS = (1, 64)
-FUSED_KERNELS = ("amax_kernel", "accumulate_kernel", "scan_kernel",
-                 "reduce_kernel", "Memset")
+FUSED_KERNELS = ("prep_kernel", "split_kernel",
+                 "(anonymous namespace)::reduce_kernel")
 STRUCT_FIELDS = ("feature", "split_bin", "cat_mask", "left_child", "n_nodes")
 HIST_N, HIST_F, HIST_NODES = 90_000, 28, (1, 8, 32)
-HIST_TIMED_NODES = (8, 32)        # a middle level and the widest of depth 6
-HIST_KERNELS = ("amax_kernel", "accumulate_kernel", "convert_kernel",
-                "Memset")
+HIST_KERNELS = ("prep_kernel", "hist_kernel")
 # kernel vs plain version: the kernel rounds an exact sum of fixed-point
 # values (each value quantized at 2^-45 of its stat's max |v|), the plain
 # version a float64 sum, both to float32
 HIST_RTOL, HIST_ATOL = 1e-6, 1e-6   # atol in units of the stat's max |v|
+# C1: stat widths past the old 16-stat limit (26 classes + the count = 27),
+# and more nodes / slots than a grid's y axis held (65,535)
+WIDE_STATS, WIDE_N, MANY_SLOTS = (17, 27, 130), 20_000, 70_000
+HOT_CODE = 17             # the bin every row draws in the hot-bin cases
+# timed shapes: (label, N, columns, stat kind, classes or None, nodes)
+HIST_TIMED = (("n_nodes=8", HIST_N, HIST_F, "gh", None, 8),
+              ("n_nodes=32", HIST_N, HIST_F, "gh", None, 32),
+              ("RF level n_nodes=2048 S=3", 100_000, HIST_F, "class", 2, 2048),
+              ("C1 n_nodes=32 S=27", HIST_N, HIST_F, "class", 26, 32))
+FUSED_TIMED = (("W=1", FUSED_N, FUSED_KF, "gh", None, 1),
+               ("W=64", FUSED_N, FUSED_KF, "gh", None, 64),
+               ("RF device W=512 kf=5 S=3", 100_000, 5, "class", 2, 512))
 BEST_FIRST_ROWS, BEST_FIRST_TREES = 3_000, 5
 # the default Random Forest (300 trees) cut to two lockstep blocks of 8;
 # every tree is grown alone, so the seconds per tree scale to 300
 RF_TREES, RF_PROFILE_TREES = 16, 4
+# C1's training phase: 26 classes at the widths of synth_higgs_like, cut to
+# 20,000 rows and 3 trees of depth 6 (the batched engine copies and scans
+# (nodes, 28, 256, 27) histograms on the host; deeper trees take minutes)
+WIDE = dict(HIGGS, name="synth_higgs_like_26", n=20_000, n_classes=26)
+WIDE_TREES, WIDE_DEPTH = 3, 6
 FOREST_FIELDS = STRUCT_FIELDS + ("threshold", "leaf_value", "split_gain")
 SINGLE_TIMED = (("gbt", 1024), ("gbt", 4096), ("rf", 10_000))
 NAIVE_ROWS = 512          # rows held to the host's per-example predict_naive
@@ -396,10 +426,11 @@ def serve(model, device, n_requests: int = 50, wave: int = 5,
 # ------------------------------------------------- split search (B1) checks
 
 def fused_inputs(n: int, kf: int, width: int, kind: str, seed: int,
-                 device, inactive: float = 0.05):
+                 device, inactive: float = 0.05, n_classes: int = 2):
     """(codes, stats, slot_of) on ``device`` as a level step gives them:
     uint8 codes, float32 stats of the kind (gh: g, h_gain, h_true, bag as
-    the GBT builds them), int32 slots in [0, width) with a share of
+    the GBT builds them; class: one-hot labels of ``n_classes`` and the
+    count, S = n_classes + 1), int32 slots in [0, width) with a share of
     inactive rows (-1)."""
     import torch
     rng = np.random.default_rng(seed)
@@ -409,8 +440,10 @@ def fused_inputs(n: int, kf: int, width: int, kind: str, seed: int,
         y = (rng.random(n) < p).astype(np.float64)
         stats = np.stack([p - y, np.ones(n), p * (1 - p), np.ones(n)], 1)
     elif kind == "class":
-        c = rng.integers(0, 2, n)
-        stats = np.stack([c == 0, c == 1, np.ones(n)], 1).astype(np.float64)
+        c = rng.integers(0, n_classes, n)
+        stats = np.zeros((n, n_classes + 1))
+        stats[np.arange(n), c] = 1.0
+        stats[:, -1] = 1.0
     else:
         yv = rng.normal(size=n)
         stats = np.stack([yv, yv * yv, np.ones(n)], 1)
@@ -519,6 +552,25 @@ def check_fused(device) -> dict:
         raise AssertionError("a 9-row slot was split with min_examples=5")
     cases["min_examples=0"] = check_fused_case(
         codes, stats, slot, 3, min_examples=0)
+    # C1: class stats past 16 (S = 17, 27, 130) and 70,000 slots
+    for S in WIDE_STATS:
+        cases[f"class S={S} N={WIDE_N} W=16"] = check_fused_case(
+            *fused_inputs(WIDE_N, FUSED_KF, 16, "class", 40 + S, device,
+                          n_classes=S - 1), 16, kind="class")
+    cases[f"W={MANY_SLOTS}, N=3000, kf=2"] = check_fused_case(
+        *fused_inputs(3_000, 2, MANY_SLOTS, "gh", 41, device), MANY_SLOTS,
+        min_examples=1)
+    # one slot with every row; a hot bin that draws every row (nothing is
+    # scoreable), then 90% of the rows
+    codes, stats, slot = fused_inputs(FUSED_N, FUSED_KF, 1, "gh", 42, device,
+                                      inactive=0.0)
+    cases["one slot, every row"] = check_fused_case(codes, stats, slot, 1)
+    hot = torch.full_like(codes, HOT_CODE)
+    r = cases["hot bin, every row"] = check_fused_case(hot, stats, slot, 1)
+    if r["scoreable"]:
+        raise AssertionError("a slot whose rows share one bin was split")
+    hot[::10] = codes[::10]
+    cases["hot bin, 90% of the rows"] = check_fused_case(hot, stats, slot, 1)
     # a duplicated column ties exactly and the lower column wins
     codes, stats, slot = fused_inputs(FUSED_N, FUSED_KF, 16, "gh", 6, device)
     codes[:, 7] = codes[:, 2]
@@ -590,6 +642,19 @@ def check_hist(device) -> dict:
         raise AssertionError("inactive rows counted as active")
     cases["N=1"] = check_hist_case(*fused_inputs(1, HIST_F, 1, "gh", 22, device,
                                                  inactive=0.0), 1)
+    # C1: class stats past 16 (S = 17, 27, 130) and 70,000 nodes
+    for S in WIDE_STATS:
+        cases[f"class S={S} N={WIDE_N} n_nodes=32"] = check_hist_case(
+            *fused_inputs(WIDE_N, HIST_F, 32, "class", 30 + S, device,
+                          n_classes=S - 1), 32)
+    cases[f"n_nodes={MANY_SLOTS}, N=3000, F=2"] = check_hist_case(
+        *fused_inputs(3_000, 2, MANY_SLOTS, "gh", 31, device), MANY_SLOTS)
+    # one node with every row, and a hot bin that draws every row
+    codes, stats, node_of = fused_inputs(HIST_N, HIST_F, 1, "gh", 32, device,
+                                         inactive=0.0)
+    cases["one node, every row"] = check_hist_case(codes, stats, node_of, 1)
+    cases["hot bin, every row"] = check_hist_case(
+        torch.full_like(codes, HOT_CODE), stats, node_of, 1)
     before = histogram.LAUNCHES
     empty = histogram.histogram(codes[:0], stats[:0], node_of[:0], 1)
     if histogram.LAUNCHES != before or bool(empty.any()):
@@ -854,22 +919,48 @@ def fused_bound(codes, stats, slot, width) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def timed_inputs(shape, seed: int, device) -> tuple:
+    """(label, (codes, stats, slot_of), nodes) of a HIST_TIMED / FUSED_TIMED
+    row."""
+    label, n, cols, kind, classes, nodes = shape
+    return label, fused_inputs(n, cols, nodes, kind, seed, device,
+                               n_classes=classes or 2), nodes
+
+
+def launches_per_call(fn, library, calls: int = 4) -> float:
+    """Kernels one call of ``fn`` launches, as the kernel library counts
+    its own launch calls (``library`` returns that count), over ``calls``
+    calls; B1 and B3 launch at most 3."""
+    before = library()
+    for _ in range(calls):
+        fn()
+    per_call = (library() - before) / calls
+    if not 1 <= per_call <= 3:
+        raise AssertionError(f"{per_call} kernel launches per call")
+    return per_call
+
+
 def time_fused(device) -> dict:
-    """B1 and its plain version at the training shape (N = 90,000, kf = 28,
-    gh stats) for the first and the widest level."""
+    """B1 and its plain version at FUSED_TIMED: the GBT's first and widest
+    level (N = 90,000, kf = 28, gh stats) and the RF device engine's
+    512-slot chunks (N = 100,000, kf = 5, class stats, S = 3)."""
+    from repro_torch.kernels.histogram import fused
     from repro_torch.kernels.histogram.fused import fused_split
     from repro_torch.kernels.histogram.ref import fused_split_ref
     out = {}
-    for w in FUSED_TIMED_WIDTHS:
-        args = fused_inputs(FUSED_N, FUSED_KF, w, "gh", 200 + w, device)
-        kernel = lambda: fused_split(*args, w, kind="gh", min_examples=5)
+    for seed, shape in enumerate(FUSED_TIMED, 200):
+        label, args, w = timed_inputs(shape, seed, device)
+        kind = shape[3]
+        kernel = lambda: fused_split(*args, w, kind=kind, min_examples=5)
         row = {"kernel_ms": device_ms(kernel),
                "kernel_device_ms": device_only_ms(kernel),
                "plain_ms": device_ms(
-                   lambda: fused_split_ref(*args, w, kind="gh",
-                                           min_examples=5))}
+                   lambda: fused_split_ref(*args, w, kind=kind,
+                                           min_examples=5)),
+               "launches_per_call": launches_per_call(
+                   kernel, fused.library().fused_split_kernel_launches)}
         row.update(fused_bound(*args, w))
-        out[w] = row
+        out[label] = row
     return out
 
 
@@ -891,18 +982,20 @@ def hist_bound(codes, stats, node_of, n_nodes) -> dict:
 
 
 def time_hist(device) -> dict:
-    """B3, its plain version and the library call at the batched engine's
-    shape (N = 90,000, F = 28, gh stats) for a middle and the widest level.
-    The library call is one ``index_add_`` of the rows' stats over flat
-    (node, feature, code) ids computed beforehand (inactive rows to a sink
-    row), as the plain version does it; only that call is timed."""
+    """B3, its plain version and the library call at HIST_TIMED: the
+    batched GBT's middle and widest level (N = 90,000, F = 28, gh stats),
+    the default RF's widest level (N = 100,000, S = 3, 2,048 nodes) and a
+    26-class level (S = 27). The library call is one ``index_add_`` of the
+    rows' stats over flat (node, feature, code) ids computed beforehand
+    (inactive rows to a sink row), as the plain version does it; only that
+    call is timed."""
     import torch
+    from repro_torch.kernels.histogram import histogram as hist
     from repro_torch.kernels.histogram.histogram import histogram
     from repro_torch.kernels.histogram.ref import histogram_f32_ref
     out = {}
-    for k in HIST_TIMED_NODES:
-        codes, stats, node_of = fused_inputs(HIST_N, HIST_F, k, "gh", 300 + k,
-                                             device)
+    for seed, shape in enumerate(HIST_TIMED, 300):
+        label, (codes, stats, node_of), k = timed_inputs(shape, seed, device)
         N, F = codes.shape
         S = stats.shape[1]
         node = node_of.long()
@@ -916,9 +1009,12 @@ def time_hist(device) -> dict:
                "kernel_device_ms": device_only_ms(kernel),
                "plain_ms": device_ms(
                    lambda: histogram_f32_ref(codes, stats, node_of, k)),
-               "library_ms": device_ms(lambda: flat.index_add_(0, seg, vals))}
+               "library_ms": device_ms(lambda: flat.index_add_(0, seg, vals)),
+               "launches_per_call": launches_per_call(
+                   kernel, hist.library().histogram_kernel_launches)}
+        del seg, vals, flat
         row.update(hist_bound(codes, stats, node_of, k))
-        out[k] = row
+        out[label] = row
     return out
 
 
@@ -1239,6 +1335,66 @@ def run_cart(data: dict, device, backend) -> dict:
             "card_vs_cpu": compare_exact(train_cart, device)}
 
 
+def run_wide(device, backend) -> dict:
+    """C1 on the card: WIDE (26 classes, so S = 27 stats, at the widths of
+    synth_higgs_like) through the default Random Forest cut to WIDE_TREES
+    trees of depth WIDE_DEPTH on the batched engine (the histogram kernel,
+    launches == builds) and on the device engine (the split-search kernel,
+    "class" stats), and a CART tree of the same depth; each equals the same
+    training on the CPU on every forest field, except the device engine's,
+    which is held as the other device-engine phases are: two card runs
+    equal, >= 99.5% of each structure field as the CPU's. Its gains are
+    float32 scores whose entropy terms take the card's ``logf`` and the
+    CPU's ``torch.log`` (summed in another order), so a near-tie may break
+    the other way and change the subtree below it."""
+    from repro_torch.data.tabular import SyntheticSpec, make_dataset
+    from repro_torch.kernels.histogram import fused, histogram
+    data = make_dataset(SyntheticSpec(**WIDE))
+    kw = dict(max_depth=WIDE_DEPTH)
+    out = {"rows": WIDE["n"], "classes": WIDE["n_classes"], "trees": WIDE_TREES,
+           "max_depth": WIDE_DEPTH}
+    for name, fit, extra in (("rf", train_rf, dict(num_trees=WIDE_TREES)),
+                             ("cart", train_cart, {})):
+        histogram.LAUNCHES = 0           # this training starts here
+        backend.builds = 0
+        card = fit(data, device, **kw, **extra)
+        launches, builds = histogram.LAUNCHES, backend.builds  # ... ends here
+        if card.training_logs["histogram_backend"] != "cuda":
+            raise AssertionError(f"{name} trained with {card.training_logs}")
+        if builds <= 0 or launches != builds:
+            raise AssertionError(f"{name}: {builds} histogram builds made "
+                                 f"{launches} kernel launches")
+        cpu = fit(data, "cpu", **kw, **extra)
+        if card.forest.leaf_value.shape[-1] != WIDE["n_classes"]:
+            raise AssertionError(f"{name}: leaves of "
+                                 f"{card.forest.leaf_value.shape[-1]} classes")
+        if not identical(card, cpu):
+            raise AssertionError(f"26-class {name}: card vs CPU forests "
+                                 f"differ: {agreement(card, cpu)}")
+        out[name] = {"launches": launches, "identical": True,
+                     "nodes": int(card.forest.n_nodes.sum())}
+    fused.LAUNCHES = 0                   # the device-engine training starts
+    card = train_rf_device(data, device, num_trees=WIDE_TREES, **kw)
+    launches = fused.LAUNCHES            # ... and ends here
+    if card.training_logs["device_impl"] != "cuda" or launches <= 0:
+        raise AssertionError(f"device engine: {launches} split-search "
+                             f"launches, {card.training_logs}")
+    if not identical(card, train_rf_device(data, device,
+                                           num_trees=WIDE_TREES, **kw)):
+        raise AssertionError("two card runs of the 26-class device engine "
+                             "differ")
+    agree = agreement(card, train_rf_device(data, "cpu",
+                                            num_trees=WIDE_TREES, **kw))
+    low = {k: v for k, v in agree.items() if v < 0.995}
+    if low:
+        raise AssertionError(f"26-class device engine: card vs CPU structure "
+                             f"agrees only {low}")
+    out["rf_device"] = {"launches": launches, "card_runs_identical": True,
+                        "card_vs_cpu_agree": agree,
+                        "nodes": int(card.forest.n_nodes.sum())}
+    return out
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -1373,6 +1529,7 @@ def main() -> int:
     _, rf_device_run = run_rf_device(data, device, rf)
     emit(phase="train_rf_device", **rf_device_run)
     emit(phase="train_cart", **run_cart(data, device, backend))
+    emit(phase="train_wide", **run_wide(device, backend))
 
     forest_infer.LAUNCHES = 0            # serving the trained forest
     served_rf = serve_trained(rf, valid, device)
@@ -1413,18 +1570,18 @@ def main() -> int:
                           X_rf[:n] if name == "rf" else encoded_inputs(n, 100 + n))
         for name, n in SINGLE_TIMED}, device)
     emit(phase="timings", card=card, **{f"N={n}": row for n, row in timings.items()},
-         **{f"fused W={w}": row for w, row in fused_t.items()},
-         **{f"hist n_nodes={k}": row for k, row in hist_t.items()},
+         **{f"fused {k}": row for k, row in fused_t.items()},
+         **{f"hist {k}": row for k, row in hist_t.items()},
          **{f"single {k}": row for k, row in single_t.items()},
          server_p50_ms=stats["p50_ms"], server_p99_ms=stats["p99_ms"],
          server_rows_per_s=stats["rows_per_s"])
 
     main_n = TIMED_SIZES[0]   # the largest dispatch bucket of the server
     t = timings[main_n]
-    main_w = FUSED_TIMED_WIDTHS[-1]   # the widest level of a depth-6 tree
-    f = fused_t[main_w]
-    main_k = HIST_TIMED_NODES[-1]     # the widest level of a depth-6 tree
-    h = hist_t[main_k]
+    main_w = FUSED_TIMED[1]           # the widest level of a depth-6 tree
+    f = fused_t[main_w[0]]
+    main_k = HIST_TIMED[1]            # the widest level of a depth-6 tree
+    h = hist_t[main_k[0]]
     main_s = "rf N={}".format(SINGLE_TIMED[-1][1])   # the trained forest
     s1 = single_t[main_s]
     print(json.dumps({"kernels": [{
@@ -1450,7 +1607,8 @@ def main() -> int:
         "plain_ms": f["plain_ms"],
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": None,
-        "shape": f"N={FUSED_N}, kf={FUSED_KF}, S=4 (gh), W={main_w}",
+        "shape": f"N={FUSED_N}, kf={FUSED_KF}, S=4 (gh), W={main_w[-1]}",
+        "launches_per_call": f["launches_per_call"],
     }, {
         "name": "histogram",
         "route": "cuda",
@@ -1462,7 +1620,8 @@ def main() -> int:
         "plain_ms": h["plain_ms"],
         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
         "library_ms": h["library_ms"],
-        "shape": f"N={HIST_N}, F={HIST_F}, S=4 (gh), n_nodes={main_k}",
+        "shape": f"N={HIST_N}, F={HIST_F}, S=4 (gh), n_nodes={main_k[-1]}",
+        "launches_per_call": h["launches_per_call"],
     }, {
         "name": "forest_single",
         "route": "cuda",

@@ -20,6 +20,10 @@ in float32, whose rounding over ~10^5 rows moves a gain by more than the
 validity floor ``REL_GAIN_EPS * |score(parent)|``; with sums this exact the
 kernel and its plain version agree to that floor, and at a near-tie either
 may pick a different (column, split_bin) pair than the reference.
+
+Limits on the card: any S >= 2, kf >= 1, N and n_slots below 2^31; the
+launch plan is ``plan.fused_plan``. A call is three launches (prep, the
+accumulate-and-scan, the fold over columns).
 """
 from __future__ import annotations
 
@@ -30,12 +34,13 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.histogram.plan import fused_plan
 from repro_torch.kernels.histogram.ref import fused_split_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_split.cu"
 NEG_INF = -1e30  # matches splitters.NEG_INF
 KINDS = {"gh": 0, "class": 1, "moment": 2}
-MAX_STATS = 16   # the kernel's register budget per row
+INT32_MAX = 2 ** 31 - 1
 
 #: kernel launches since the last reset (plain-version calls not counted)
 LAUNCHES = 0
@@ -88,11 +93,13 @@ def library() -> ctypes.CDLL:
     build fails."""
     lib = ctypes.CDLL(str(_build.build(SOURCE).library))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_split.argtypes = [p, p, p, i, i, i, i, i, i, f, f, p, p, p, p,
-                                p, p, p]
+    lib.fused_split.argtypes = ([p, p, p, i, i, i, i, i, i, f, f] + [i] * 8
+                                + [p] * 7)
     lib.fused_split.restype = ctypes.c_int
     lib.fused_split_scratch_bytes.argtypes = [i, i, i]
     lib.fused_split_scratch_bytes.restype = ctypes.c_longlong
+    lib.fused_split_kernel_launches.argtypes = []
+    lib.fused_split_kernel_launches.restype = ctypes.c_longlong
     return lib
 
 
@@ -137,19 +144,20 @@ def fused_split(codes, stats, slot_of, n_slots: int, n_bins: int = 256, *,
                          f"count), got {S}")
     if not 1 <= n_bins <= 256:
         raise ValueError(f"n_bins must be in [1, 256], got {n_bins}")
-    if not 1 <= n_slots <= 65535:
-        raise ValueError(f"n_slots must be in [1, 65535], got {n_slots}")
+    if not 1 <= n_slots < INT32_MAX:
+        raise ValueError(f"n_slots must be in [1, {INT32_MAX}), got {n_slots}")
     if dev.type == "cpu":
         return fused_split_ref(codes, stats, slot_of, n_slots, n_bins,
                                kind=kind, l2=l2, min_examples=min_examples)
     if dev.type != "cuda":
         raise ValueError(f"fused_split runs on CUDA or CPU tensors, got "
                          f"device {dev}")
-    if S > MAX_STATS or kf < 1:
-        raise ValueError(f"unsupported shape kf={kf}, S={S}: the kernel takes "
-                         f"kf >= 1 and S <= {MAX_STATS}")
+    if kf < 1 or N >= INT32_MAX:
+        raise ValueError(f"unsupported shape N={N}, kf={kf}: the kernel takes "
+                         f"kf >= 1 and N < {INT32_MAX}")
+    plan = fused_plan(N, kf, S, n_slots, kind)
     lib = library()
-    scratch = torch.empty(lib.fused_split_scratch_bytes(kf, S, n_slots),
+    scratch = torch.empty(lib.fused_split_scratch_bytes(N, S, n_slots),
                           dtype=torch.uint8, device=dev)
     col_gain = torch.empty((n_slots, kf), dtype=torch.float32, device=dev)
     col_bin = torch.empty((n_slots, kf), dtype=torch.int32, device=dev)
@@ -163,8 +171,9 @@ def fused_split(codes, stats, slot_of, n_slots: int, n_bins: int = 256, *,
     err = lib.fused_split(
         codes.data_ptr(), stats.data_ptr(), slot_of.data_ptr(), N, kf, S,
         n_slots, n_bins, KINDS[kind], float(l2), float(min_examples),
-        scratch.data_ptr(), col_gain.data_ptr(), col_bin.data_ptr(),
-        gain.data_ptr(), column.data_ptr(), split_bin.data_ptr(), stream)
+        *plan.kernel_args(), scratch.data_ptr(), col_gain.data_ptr(),
+        col_bin.data_ptr(), gain.data_ptr(), column.data_ptr(),
+        split_bin.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fused_split launch failed: CUDA error {err} "
                            f"(N={N}, kf={kf}, S={S}, W={n_slots})")

@@ -16,6 +16,11 @@ The kernel sums in 64-bit fixed point (exact and order-free, so repeated
 calls give the same bits and the count channel is exact) and returns the
 float32 rounding of each sum; the plain version rounds a float64 sum. The
 reference's kernel sums in float32.
+
+Limits on the card: any S >= 1, N and n_nodes below 2^31; the stats in
+groups of at most 16 and the nodes in chunks, as ``plan.histogram_plan``
+lays them out. A call is two launches (prep, accumulate) and allocates
+scratch that grows with N * S, not with the histogram.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.histogram.fused import MAX_STATS, _check
+from repro_torch.kernels.histogram.fused import INT32_MAX, _check
+from repro_torch.kernels.histogram.plan import histogram_plan
 from repro_torch.kernels.histogram.ref import histogram_f32_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "histogram.cu"
@@ -42,10 +48,12 @@ def library() -> ctypes.CDLL:
     build fails."""
     lib = ctypes.CDLL(str(_build.build(SOURCE).library))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.histogram.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+    lib.histogram.argtypes = [p, p, p] + [i] * 13 + [p, p, p]
     lib.histogram.restype = ctypes.c_int
     lib.histogram_scratch_bytes.argtypes = [i, i, i]
     lib.histogram_scratch_bytes.restype = ctypes.c_longlong
+    lib.histogram_kernel_launches.argtypes = []
+    lib.histogram_kernel_launches.restype = ctypes.c_longlong
     return lib
 
 
@@ -69,21 +77,22 @@ def histogram(codes, stats, node_of, n_nodes: int,
                          f"{tuple(node_of.shape)}")
     if not 1 <= n_bins <= 256:
         raise ValueError(f"n_bins must be in [1, 256], got {n_bins}")
-    if not 0 <= n_nodes <= 65535:
-        raise ValueError(f"n_nodes must be in [0, 65535], got {n_nodes}")
+    if not 0 <= n_nodes < INT32_MAX:
+        raise ValueError(f"n_nodes must be in [0, {INT32_MAX}), got {n_nodes}")
     if dev.type == "cpu":
         return histogram_f32_ref(codes, stats, node_of, n_nodes, n_bins)
     if dev.type != "cuda":
         raise ValueError(f"histogram runs on CUDA or CPU tensors, got "
                          f"device {dev}")
-    if not 1 <= S <= MAX_STATS:
-        raise ValueError(f"unsupported S={S}: the kernel takes 1 <= S <= "
-                         f"{MAX_STATS}")
+    if S < 1 or N >= INT32_MAX:
+        raise ValueError(f"unsupported shape N={N}, S={S}: the kernel takes "
+                         f"S >= 1 and N < {INT32_MAX}")
     if N == 0 or F == 0 or n_nodes == 0:
         return torch.zeros((n_nodes, F, n_bins, S), dtype=torch.float32,
                            device=dev)
+    plan = histogram_plan(N, F, S, n_nodes)
     lib = library()
-    scratch = torch.empty(lib.histogram_scratch_bytes(F, S, n_nodes),
+    scratch = torch.empty(lib.histogram_scratch_bytes(N, S, n_nodes),
                           dtype=torch.uint8, device=dev)
     out = torch.empty((n_nodes, F, n_bins, S), dtype=torch.float32, device=dev)
     # the kernels run on the current stream after this returns; the caching
@@ -91,8 +100,8 @@ def histogram(codes, stats, node_of, n_nodes: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     global LAUNCHES
     err = lib.histogram(codes.data_ptr(), stats.data_ptr(), node_of.data_ptr(),
-                        N, F, S, n_nodes, n_bins, scratch.data_ptr(),
-                        out.data_ptr(), stream)
+                        N, F, S, n_nodes, n_bins, *plan.kernel_args(),
+                        scratch.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"histogram launch failed: CUDA error {err} "
                            f"(N={N}, F={F}, S={S}, n_nodes={n_nodes})")

@@ -17,7 +17,11 @@ rtol 1e-6 + 1e-6 * the stat's max |v|), and the same bits over launches;
 the single-tree traversal kernel none (``torch.equal`` against its plain
 version, ``array_equal`` against ``predict_naive``). A Random Forest and a
 CART tree trained on the card equal the CPU's on every forest field (their
-stats are integer counts, so every histogram cell is exact).
+stats are integer counts, so every histogram cell is exact), with 26
+classes too; the device engine's 26-class forest repeats its bits and
+agrees with the CPU's on >= 99.5% of each structure field, as the device
+engine's other card-against-CPU checks (its float32 entropy terms take the
+card's ``logf`` and the CPU's ``torch.log``).
 """
 from __future__ import annotations
 
@@ -251,6 +255,90 @@ def test_default_gbt_on_the_card_builds_every_histogram_with_the_kernel(
     X = BatchEncoder(model.spec, model.features).encode(rows)
     want = model._compile_finalize()(predict_naive(model.forest, X))
     assert np.array_equal(model.predict(rows, engine="cuda", device=cuda), want)
+
+
+# ---------------------------- C1: wide stats and many nodes (B1, B3)
+
+@pytest.mark.parametrize("S", [17, 27, 130])
+def test_histogram_kernel_takes_wide_stats(cuda, S):
+    """S past the old limit of 16 (class counts + the count): the kernel
+    against its plain version, and the same bits over two launches."""
+    import chip_smoke
+    args = chip_smoke.fused_inputs(20_000, 28, 32, "class", seed=S,
+                                   device=cuda, n_classes=S - 1)
+    r = chip_smoke.check_hist_case(*args, 32)
+    assert r["active"] > 0
+
+
+@pytest.mark.parametrize("S", [17, 27, 130])
+def test_fused_split_kernel_takes_wide_stats(cuda, S):
+    import chip_smoke
+    args = chip_smoke.fused_inputs(20_000, 28, 16, "class", seed=S,
+                                   device=cuda, n_classes=S - 1)
+    r = chip_smoke.check_fused_case(*args, 16, kind="class")
+    assert r["scoreable"] > 0
+
+
+def test_kernels_take_more_nodes_than_a_grid_axis_held(cuda):
+    """70,000 nodes / slots (the old kernels put them on a 65,535-wide
+    grid axis) at small N."""
+    import chip_smoke
+    from repro_torch.kernels.histogram import fused, histogram
+    args = chip_smoke.fused_inputs(3_000, 2, 70_000, "gh", seed=5,
+                                   device=cuda)
+    before = (histogram.LAUNCHES, fused.LAUNCHES)
+    r = chip_smoke.check_hist_case(*args, 70_000)
+    assert r["n_nodes"] == 70_000 and r["active"] > 0
+    r = chip_smoke.check_fused_case(*args, 70_000, min_examples=1)
+    assert r["slots"] == 70_000 and r["scoreable"] > 0
+    assert histogram.LAUNCHES > before[0] and fused.LAUNCHES > before[1]
+
+
+def test_hot_bin_and_one_node(cuda):
+    """Every row in one node, then also in one bin of every column."""
+    import chip_smoke
+    codes, stats, node_of = chip_smoke.fused_inputs(
+        90_000, 28, 1, "gh", seed=9, device=cuda, inactive=0.0)
+    chip_smoke.check_hist_case(codes, stats, node_of, 1)
+    hot = torch.full_like(codes, 17)
+    chip_smoke.check_hist_case(hot, stats, node_of, 1)
+    r = chip_smoke.check_fused_case(hot, stats, node_of, 1)
+    assert r["scoreable"] == 0
+    hot[::10] = codes[::10]
+    chip_smoke.check_fused_case(hot, stats, node_of, 1)
+
+
+def test_launches_per_call(cuda):
+    """B3 is prep + accumulate, B1 prep + accumulate-and-scan + column
+    fold: no memset, no separate convert or scan pass."""
+    import chip_smoke
+    from repro_torch.kernels.histogram import fused, histogram
+    args = chip_smoke.fused_inputs(5_000, 28, 8, "gh", seed=2, device=cuda)
+    hist = histogram.library().histogram_kernel_launches
+    split = fused.library().fused_split_kernel_launches
+    assert chip_smoke.launches_per_call(
+        lambda: histogram.histogram(*args, 8), hist) == 2
+    assert chip_smoke.launches_per_call(
+        lambda: fused.fused_split(*args, 8), split) == 3
+
+
+def test_26_class_forests_on_the_card_equal_the_cpu(cuda):
+    """26 classes (S = 27): the Random Forest on both engines and CART."""
+    import chip_smoke
+    from repro_torch.data.tabular import SyntheticSpec, make_dataset
+    data = make_dataset(SyntheticSpec(**{**chip_smoke.WIDE, "n": 4_000}))
+    for fit, kw in ((chip_smoke.train_rf, dict(num_trees=2)),
+                    (chip_smoke.train_cart, {})):
+        card = fit(data, cuda, max_depth=5, **kw)
+        assert card.training_logs["histogram_backend"] == "cuda"
+        assert chip_smoke.identical(card, fit(data, "cpu", max_depth=5, **kw))
+    card = chip_smoke.train_rf_device(data, cuda, num_trees=2, max_depth=5)
+    assert card.training_logs["device_impl"] == "cuda"
+    again = chip_smoke.train_rf_device(data, cuda, num_trees=2, max_depth=5)
+    assert chip_smoke.identical(card, again)
+    cpu = chip_smoke.train_rf_device(data, "cpu", num_trees=2, max_depth=5)
+    agree = chip_smoke.agreement(card, cpu)
+    assert min(agree.values()) >= 0.995, agree
 
 
 # ------------------------------------------ single-tree traversal (B4)
