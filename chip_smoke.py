@@ -24,10 +24,16 @@ JSON line each:
   2. build         — every kernel source (``kernels/_build.SOURCES``) built
                      from ``csrc/`` with nvcc, one nvcc per source, all
                      started together.
-  3. kernel        — the traversal kernel against its plain PyTorch version
-                     at the serving shapes, hostile values included
-                     (``torch.equal``), and the full traversal against the
-                     numpy ``predict_naive`` (``array_equal``).
+  3. kernel        — the tiled traversal kernel (B2) against its plain
+                     PyTorch version at the serving shapes, hostile values
+                     included (``torch.equal``), and the full traversal
+                     against the numpy ``predict_naive`` (``array_equal``);
+                     ``forest_predict(impl="cuda")`` is one launch a call
+                     with ``index_select`` refused; and each plan variant
+                     (records staged in shared memory, or read from global
+                     memory) in packed and tree order on the GBT, the
+                     hand-built zoo, trees of 16,384 nodes (global only)
+                     and 3-wide leaves (``check_variants``).
   4. kernel_hist   — the histogram kernel against its plain version at the
                      batched engine's shapes (N = 90,000, F = 28, gh stats
                      with a duplicated column, 5% inactive rows, n_nodes 1,
@@ -64,7 +70,8 @@ JSON line each:
                      against the same run on the CPU with its plain version.
   9. serve_trained — the trained model's predictions for its 10,000
                      validation rows through the CUDA traversal engine,
-                     equal to ``predict_naive`` bit for bit.
+                     equal to ``predict_naive`` bit for bit; both traversal
+                     kernels in each plan variant on those rows.
  10. serve         — a ``ForestServer`` with the default chain answers ~50
                      raw-column requests; every answer equals the host oracle
                      ``finalize(predict_naive(encode(batch)))``, every
@@ -93,7 +100,8 @@ JSON line each:
                      engine: two card runs equal, >= 99.5% of each structure
                      field as the CPU's).
  14. serve_rf      — the trained forest through the tiled traversal kernel
-                     (M = 4,096, depth up to 16), equal to ``predict_naive``.
+                     (M = 4,096, depth up to 16), equal to ``predict_naive``;
+                     both traversal kernels in each plan variant.
  15. kernel_single — the single-tree traversal kernel driven through
                      ``forest_predict(impl="single")`` on the trained forest
                      and the GBT (counts reset just before, read just
@@ -102,7 +110,8 @@ JSON line each:
                      on the trained forest, the GBT and a hand-built zoo
                      (mask words 0x80000001 and 0xFFFFFFFF, codes 0, 31, 32
                      and 255, NaN, +-inf and |x| >= 2^63, a stump forest, a
-                     0-row batch that launches nothing).
+                     0-row batch that launches nothing), and in each plan
+                     variant on those, the 16,384-node trees and O = 3.
  16. timings       — per kernel: time per call (CUDA events around each call,
                      median of 20 after warm-up; the wrapper's host-side
                      checks fall inside the window), device time (the same
@@ -114,7 +123,11 @@ JSON line each:
                      the kernels launched per call (as the kernel library
                      counts its launch calls) of B1 and B3, at HIST_TIMED and FUSED_TIMED (the GBT's levels,
                      the RF's 2,048-node level, 26 classes, the RF device
-                     engine's 512-slot chunks); the
+                     engine's 512-slot chunks); B2 at TIMED_SIZES and B4 at
+                     SINGLE_TIMED over their cached layouts, with the
+                     device time of each plan variant, the whole
+                     ``forest_predict`` (``kernel_path_ms``) and the plan
+                     each took; the
                      serve phase's latency and rows/s (a smoke
                      reading over ~50 requests, server built before the clock
                      starts).
@@ -140,7 +153,12 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 N_TREES, MAX_DEPTH, MIN_DEPTH, MAX_NODES = 300, 6, 3, 128
 KERNEL_SIZES = (1, 7, 32, 1024, 4096)
-TIMED_SIZES = (1024, 4096)
+# B2 timed at the serving ladder's smallest and largest buckets
+# (serving/forest.py), 4,096 rows and bulk scoring of 65,536 rows, whose
+# (N, 300) float32 output alone is 78.6 MB
+TIMED_SIZES = (32, 1024, 4096, 65_536)
+MAIN_N = 1024             # the largest dispatch bucket of the server
+BIG_NODES = 16_384        # trees past a block's shared memory: record-global
 HOSTILE = (float("nan"), float("inf"), float("-inf"), 1e20, -3.0, 255.9,
            256.0, 300.0, -1e20, 3e38)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor fp32 ops/s
@@ -186,7 +204,8 @@ RF_TREES, RF_PROFILE_TREES = 16, 4
 WIDE = dict(HIGGS, name="synth_higgs_like_26", n=20_000, n_classes=26)
 WIDE_TREES, WIDE_DEPTH = 3, 6
 FOREST_FIELDS = STRUCT_FIELDS + ("threshold", "leaf_value", "split_gain")
-SINGLE_TIMED = (("gbt", 1024), ("gbt", 4096), ("rf", 10_000))
+SINGLE_TIMED = (("gbt", 1024), ("gbt", 4096), ("rf", 10_000),
+                ("rf", 100_000))
 NAIVE_ROWS = 512          # rows held to the host's per-example predict_naive
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
@@ -338,7 +357,8 @@ def build_kernels() -> dict:
     return {src.name: {
         "seconds": r.seconds,
         "ptxas": [ln.strip() for ln in r.log.splitlines()
-                  if "registers" in ln or "spill" in ln]}
+                  if "registers" in ln or "spill" in ln or "smem" in ln
+                  or "Compiling entry" in ln]}
         for src, r in results.items()}
 
 
@@ -374,7 +394,182 @@ def check_kernel(model, device, sizes=KERNEL_SIZES, naive_rows=64) -> dict:
     if not np.array_equal(got, predict_naive(forest, Xn)):
         raise AssertionError("kernel path != numpy predict_naive")
     return {"B": B, "TB": TB, "M": M, "sizes": list(sizes),
-            "naive_rows": naive_rows, "max_abs_err": err}
+            "naive_rows": naive_rows, "max_abs_err": err,
+            "path_launches_per_call": path_launches(forest, device)}
+
+
+def path_launches(forest, device, calls: int = 3) -> float:
+    """Tiled-kernel launches per ``forest_predict(impl="cuda")`` call, with
+    ``index_select`` refused: the kernel stores tree order itself."""
+    import torch
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    X = torch.from_numpy(encoded_inputs(MAIN_N, seed=5)).to(device)
+
+    def refuse(*a, **k):
+        raise AssertionError("index_select on the traversal path")
+
+    saved = torch.index_select, torch.Tensor.index_select
+    torch.index_select = torch.Tensor.index_select = refuse
+    try:
+        before = forest_infer.LAUNCHES
+        for _ in range(calls):
+            ops.forest_predict(forest, X, "cuda", device)
+        per_call = (forest_infer.LAUNCHES - before) / calls
+    finally:
+        torch.index_select, torch.Tensor.index_select = saved
+    if device.type == "cuda" and per_call != 1:
+        raise AssertionError(f"forest_predict launched {per_call} kernels a call")
+    return per_call
+
+
+def random_forest(n_trees: int, n_splits: int, n_features: int, out_dim: int,
+                  seed: int, cat_feats=(), max_nodes: int | None = None):
+    """A random axis-aligned forest: each tree splits a random leaf
+    ``n_splits`` times; a split on a column of ``cat_feats`` gets a random
+    mask over all 256 codes (never empty), any other a normal threshold."""
+    from repro_torch.core.tree import empty_forest, node_depths
+    rng = np.random.default_rng(seed)
+    f = empty_forest(n_trees, max_nodes or 2 * n_splits + 1, out_dim,
+                     feature_names=[f"f{j}" for j in range(n_features)])
+    for t in range(n_trees):
+        f.leaf_value[t, 0] = rng.normal(size=out_dim)
+        leaves, count = [0], 1
+        for _ in range(n_splits):
+            node = leaves.pop(int(rng.integers(len(leaves))))
+            j = int(rng.integers(n_features))
+            f.feature[t, node] = j
+            if j in cat_feats:
+                words = rng.integers(0, 2 ** 32, size=8, dtype=np.uint64)
+                f.cat_mask[t, node] = words.astype(np.uint32) | np.uint32(1)
+            else:
+                f.threshold[t, node] = rng.normal()
+            f.left_child[t, node] = count
+            f.leaf_value[t, count:count + 2] = rng.normal(size=(2, out_dim))
+            leaves += [count, count + 1]
+            count += 2
+        f.n_nodes[t] = count
+    f.depth = int(max(0, node_depths(f).max()))
+    return f
+
+
+def hostile_rows(n: int, F: int, seed: int, cat_feats=()) -> np.ndarray:
+    """(n, F) float32: normal values, codes -5 .. 299 in ``cat_feats``, and
+    every third row the HOSTILE values (NaN, +-inf, huge, codes past 255)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    for j in cat_feats:
+        X[:, j] = rng.integers(-5, 300, n)
+    bad = np.array(HOSTILE, np.float32)
+    X[::3] = bad[(np.arange(0, n, 3)[:, None] + np.arange(F)) % len(bad)]
+    return X
+
+
+def traversal_cases() -> dict:
+    """(forest, X) cases for both traversal kernels beyond the served GBT:
+    the hand-built zoo, trees of BIG_NODES nodes (past a block's shared
+    memory, so the plan reads their records from global memory) and a
+    forest of 3-wide leaves over 700-split trees with categorical columns."""
+    big = random_forest(4, BIG_NODES // 2 - 1, 5, 1, seed=8, cat_feats=(2,),
+                        max_nodes=BIG_NODES)
+    o3 = random_forest(37, 700, 9, 3, seed=4, cat_feats=(1, 5))
+    return {**single_zoo(),
+            f"{BIG_NODES} nodes": (big, hostile_rows(600, 5, 9, (2,))),
+            "O=3": (o3, hostile_rows(300, 9, 5, (1, 5)))}
+
+
+def traversal_plan(forest, X, kernel: str, device, variant=None):
+    """The plan a traversal kernel takes for X over ``forest``'s layout
+    (``variant`` None: the one the plan picks)."""
+    from repro_torch.kernels.forest_infer import ops, plan
+    N = X.shape[0]
+    if kernel == "tiled":
+        lay = ops.device_packed(forest, device).layout
+        return plan.tiled_plan(N, lay.slots // lay.group, lay.group,
+                               lay.max_nodes, lay.group_masks[0], variant)
+    lay = ops.device_soa(forest, device).layout
+    return plan.single_plan(N, max(1, lay.slots), lay.max_nodes,
+                            lay.out_dim, lay.group_masks, variant)
+
+
+def plan_variants(forest, X, kernel: str, device) -> tuple:
+    """The plan variants a traversal kernel can take for X over
+    ``forest``'s layout: "global" always, "staged" where the group fits the
+    shared memory a block may have (the plan picks it only within
+    ``plan.STAGE_BUDGET``; forcing it past the block's limit raises)."""
+    try:
+        traversal_plan(forest, X, kernel, device, "staged")
+    except ValueError:
+        return ("global",)
+    return ("staged", "global")
+
+
+def check_variants(forest, X: np.ndarray, device,
+                   kernels=("tiled", "single")) -> dict:
+    """Each traversal kernel of ``kernels`` in each plan variant its shapes
+    allow (``plan_variants``) against its plain version on the same tensors
+    (``torch.equal``; the tiled kernel in packed order and in tree order)
+    and, in tree order, against the host's ``predict_naive`` on the first
+    NAIVE_ROWS rows (``array_equal``). Returns the variants run, with their
+    plans, and the largest absolute difference (0.0 when bit-identical)."""
+    import torch
+    from repro_torch.core.tree import predict_naive
+    from repro_torch.kernels.forest_infer import ops
+    from repro_torch.kernels.forest_infer.forest_infer import run_single, run_tiled
+    from repro_torch.kernels.forest_infer.ref import (
+        forest_predict_packed_ref, forest_predict_ref)
+    Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+    naive = predict_naive(forest, np.asarray(X[:NAIVE_ROWS], np.float32))
+    out, err = {}, 0.0
+    for kernel in kernels:
+        if kernel == "tiled":
+            tabs = ops.device_packed(forest, device)
+            want = forest_predict_packed_ref(Xd, *tabs.tables)
+            calls = {"packed": (lambda v: run_tiled(Xd, tabs.layout, variant=v),
+                                want),
+                     "tree order": (lambda v: run_tiled(
+                         Xd, tabs.layout, tree_order=True, variant=v),
+                         want[:, tabs.inv_order])}
+        else:
+            tabs = ops.device_soa(forest, device)
+            want = forest_predict_ref(Xd, *tabs[:5], depth=forest.depth)
+            calls = {"tree order": (lambda v: run_single(Xd, tabs.layout,
+                                                         variant=v), want)}
+        chosen = traversal_plan(forest, X, kernel, device)
+        rows = {}
+        for v in plan_variants(forest, X, kernel, device):
+            for what, (fn, plain) in calls.items():
+                got = fn(v)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                if not torch.equal(got, plain):
+                    raise AssertionError(
+                        f"{kernel} ({v}, {what}) != plain version: max abs "
+                        f"diff {float((got - plain).abs().max())}")
+                if what == "tree order" and not np.array_equal(
+                        got[:NAIVE_ROWS].cpu().numpy(), naive):
+                    raise AssertionError(f"{kernel} ({v}) != predict_naive")
+                if got.numel():
+                    err = max(err, float((got - plain).abs().max()))
+            p = traversal_plan(forest, X, kernel, device, v)
+            rows[v] = {"picked": v == chosen.variant, "group": p.group,
+                       "blocks": p.blocks, "smem": p.smem}
+        out[kernel] = rows
+    return {"rows": len(X), "trees": forest.n_trees,
+            "max_nodes": forest.max_nodes, "depth": forest.depth,
+            "variants": out, "max_abs_err": err}
+
+
+def check_all_variants(cases: dict, device, kernels) -> dict:
+    """``check_variants`` over named (forest, X) cases; every kernel must
+    have run in both variants somewhere among them."""
+    out = {name: check_variants(f, X, device, kernels)
+           for name, (f, X) in cases.items()}
+    for kernel in kernels:
+        seen = {v for r in out.values() for v in r["variants"][kernel]}
+        if seen != {"staged", "global"}:
+            raise AssertionError(f"{kernel} ran only in {seen}")
+    return {"cases": out,
+            "max_abs_err": max(r["max_abs_err"] for r in out.values())}
 
 
 def serve(model, device, n_requests: int = 50, wave: int = 5,
@@ -844,31 +1039,35 @@ def device_only_ms(fn, reps: int = 20, warmup: int = 3,
     return float(np.median(times))
 
 
-def traversal_bound(forest, X, extra_bytes: int = 0) -> dict:
-    """The least time the card could take for one traversal call: bytes
-    (X read once, the nodes each tree holds read once — feature, threshold
-    and left_child 4 B each, the 32 B mask, 4 * O B of leaf value, and not
-    the padding of a packed layout —, ``extra_bytes`` of other inputs, and
-    one output per example and tree written once) over HBM bandwidth,
-    against node visits (one fp32 compare each, counted on this input by
+def traversal_bound(forest, X, lay, extra_bytes: int = 0) -> dict:
+    """The least time the card could take for one traversal call over the
+    node layout ``lay``: bytes (X read once; each node the trees hold read
+    once as its 16-byte record, and not the padding of a packed layout;
+    each mask of the layout's side table, 32 B, once; when O > 1 each held
+    node's leaf row, 4 * O B, once; ``extra_bytes`` of other inputs; one
+    output per example and tree written once) over HBM bandwidth, against
+    node visits (one fp32 compare each, counted on this input by
     traversing with each node's depth as its leaf value) over the fp32
     peak."""
     import torch
     from repro_torch.core.tree import node_depths
-    from repro_torch.kernels.forest_infer import ops
+    from repro_torch.kernels.forest_infer import ops, plan
     from repro_torch.kernels.forest_infer.ref import forest_predict_ref
     O = forest.leaf_value.shape[-1]
     n = X.shape[0]
-    node_bytes = 4 + 4 + 4 + 32 + 4 * O                   # 48 B when O = 1
-    nbytes = (X.numel() * X.element_size() + int(forest.n_nodes.sum()) * node_bytes
-              + extra_bytes + n * forest.n_trees * O * 4)
+    nodes = int(forest.n_nodes.sum())
+    masks = int(lay.mask_start[-1])
+    node_bytes = plan.RECORD_BYTES + (4 * O if O > 1 else 0)
+    nbytes = (X.numel() * X.element_size() + nodes * node_bytes
+              + masks * plan.MASK_BYTES + extra_bytes
+              + n * forest.n_trees * O * 4)
     soa = ops.device_soa(forest, X.device)
     depth = np.maximum(node_depths(forest), 0).astype(np.float32)[..., None]
     visits = float(forest_predict_ref(
         X, soa.feature, soa.threshold, soa.cat_mask, soa.left_child,
         torch.from_numpy(depth).to(X.device), depth=forest.depth).sum())
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, visits / PEAK_FP32_S * 1e3
-    return {"bytes": nbytes, "nodes_held": int(forest.n_nodes.sum()),
+    return {"bytes": nbytes, "nodes_held": nodes, "masks_held": masks,
             "node_visits": visits,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -877,25 +1076,39 @@ def traversal_bound(forest, X, extra_bytes: int = 0) -> dict:
 def kernel_bound(model, X, packed) -> dict:
     """``traversal_bound`` of the tiled kernel: its per-block depths are
     the one input beside X and the nodes."""
-    return traversal_bound(model.forest, X, packed.block_depth.numel() * 4)
+    return traversal_bound(model.forest, X, packed.layout,
+                           packed.block_depth.numel() * 4)
 
 
 def time_kernel(model, device) -> dict:
+    """B2 at TIMED_SIZES: the wrapper over the cached layout in packed order
+    (per call and device), its device time in each plan variant, its
+    tree-order store (device), the plain version, the whole
+    ``forest_predict(impl="cuda")`` and the bound."""
     import torch
     from repro_torch.kernels.forest_infer import ops
-    from repro_torch.kernels.forest_infer.forest_infer import forest_predict_tiled
+    from repro_torch.kernels.forest_infer.forest_infer import run_tiled
     from repro_torch.kernels.forest_infer.ref import forest_predict_packed_ref
     packed = ops.device_packed(model.forest, device)
     out = {}
     for n in TIMED_SIZES:
         X = torch.from_numpy(encoded_inputs(n, seed=100 + n)).to(device)
-        kernel = lambda: forest_predict_tiled(X, *packed.tables)
+        kernel = lambda: run_tiled(X, packed.layout)
+        p = traversal_plan(model.forest, X, "tiled", device)
         row = {"kernel_ms": device_ms(kernel),
                "kernel_device_ms": device_only_ms(kernel),
+               "variant_device_ms": {
+                   v: device_only_ms(lambda: run_tiled(X, packed.layout,
+                                                       variant=v))
+                   for v in plan_variants(model.forest, X, "tiled", device)},
+               "tree_order_device_ms": device_only_ms(
+                   lambda: run_tiled(X, packed.layout, tree_order=True)),
                "plain_ms": device_ms(
                    lambda: forest_predict_packed_ref(X, *packed.tables)),
                "kernel_path_ms": device_ms(
-                   lambda: ops.forest_predict(model.forest, X, "cuda", device))}
+                   lambda: ops.forest_predict(model.forest, X, "cuda", device)),
+               "plan": {"variant": p.variant, "group": p.group,
+                        "blocks": p.blocks, "smem": p.smem}}
         row.update(kernel_bound(model, X, packed))
         out[n] = row
     return out
@@ -1160,22 +1373,33 @@ def check_single(cases: dict, device) -> dict:
 
 
 def time_single(cases: dict, device) -> dict:
-    """The single-tree kernel, its plain version and its bound per named
-    (forest, X) case."""
+    """The single-tree kernel over the cached layout (per call and
+    device, and device in each plan variant), its plain version, the whole
+    ``forest_predict(impl="single")`` and its bound per named (forest, X)
+    case."""
     import torch
     from repro_torch.kernels.forest_infer import ops
-    from repro_torch.kernels.forest_infer.forest_infer import forest_predict_single
+    from repro_torch.kernels.forest_infer.forest_infer import run_single
     from repro_torch.kernels.forest_infer.ref import forest_predict_ref
     out = {}
     for name, (forest, X) in cases.items():
         soa = ops.device_soa(forest, device)
         Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
-        kernel = lambda: forest_predict_single(Xd, *soa[:5], depth=forest.depth)
+        kernel = lambda: run_single(Xd, soa.layout)
+        p = traversal_plan(forest, X, "single", device)
         row = {"kernel_ms": device_ms(kernel),
                "kernel_device_ms": device_only_ms(kernel),
+               "variant_device_ms": {
+                   v: device_only_ms(lambda: run_single(Xd, soa.layout,
+                                                        variant=v))
+                   for v in plan_variants(forest, X, "single", device)},
                "plain_ms": device_ms(lambda: forest_predict_ref(
-                   Xd, *soa[:5], depth=forest.depth))}
-        row.update(traversal_bound(forest, Xd))
+                   Xd, *soa[:5], depth=forest.depth)),
+               "kernel_path_ms": device_ms(lambda: ops.forest_predict(
+                   forest, Xd, "single", device)),
+               "plan": {"variant": p.variant, "group": p.group,
+                        "blocks": p.blocks, "smem": p.smem}}
+        row.update(traversal_bound(forest, Xd, soa.layout))
         out[name] = row
     return out
 
@@ -1431,7 +1655,15 @@ def main() -> int:
                              "38 blocks of 8 trees x 128 nodes")
     if forest_infer.LAUNCHES <= 0:
         raise AssertionError("the kernel check made no kernel launch")
-    emit(phase="kernel", **kern, launches=forest_infer.LAUNCHES)
+    cases = traversal_cases()
+    gbt_cases = {f"gbt N={n}": (model.forest, encoded_inputs(n, seed=30 + n))
+                 for n in (1, MAIN_N, 4096)}
+    tiled_variants = check_all_variants({**gbt_cases, **cases}, device,
+                                        ("tiled",))
+    kern["max_abs_err"] = max(kern["max_abs_err"],
+                              tiled_variants["max_abs_err"])
+    emit(phase="kernel", **kern, variants=tiled_variants,
+         launches=forest_infer.LAUNCHES)
 
     hist_check = check_hist(device)
     if histogram.LAUNCHES <= 0:
@@ -1507,7 +1739,10 @@ def main() -> int:
     trained_launches = forest_infer.LAUNCHES
     if trained_launches <= 0:
         raise AssertionError("serving the trained model launched no kernel")
-    emit(phase="serve_trained", **served, launches=trained_launches)
+    X_valid = BatchEncoder(trained.spec, trained.features).encode(
+        {k: valid[k] for k in trained.features})
+    emit(phase="serve_trained", **served, launches=trained_launches,
+         variants=check_variants(trained.forest, X_valid, device))
 
     forest_infer.LAUNCHES = 0            # the serving run starts here
     stats = serve(model, device)
@@ -1536,15 +1771,16 @@ def main() -> int:
     rf_served_launches = forest_infer.LAUNCHES
     if rf_served_launches <= 0:
         raise AssertionError("serving the trained forest launched no kernel")
+    X_rf = BatchEncoder(rf.spec, rf.features).encode(
+        {k: valid[k] for k in rf.features})
     emit(phase="serve_rf", **served_rf, launches=rf_served_launches,
          trees=rf.forest.n_trees, max_nodes=rf.forest.max_nodes,
-         depth=rf.forest.depth)
+         depth=rf.forest.depth,
+         variants=check_variants(rf.forest, X_rf, device))
 
     # the single-tree kernel's path: forest_predict(impl="single") on the
     # trained forest and on the default GBT
-    X_rf = BatchEncoder(rf.spec, rf.features).encode(
-        {k: valid[k] for k in rf.features})
-    X_gbt = encoded_inputs(TIMED_SIZES[0], seed=12)
+    X_gbt = encoded_inputs(MAIN_N, seed=12)
     forest_infer.SINGLE_LAUNCHES = 0     # the single-tree path starts here
     single_out = [ops.forest_predict(m.forest, X, "single", device)
                   for m, X in ((rf, X_rf), (model, X_gbt))]
@@ -1558,16 +1794,25 @@ def main() -> int:
             raise AssertionError("single-tree traversal != tiled traversal")
     single_check = check_single(
         {"rf, trained": (rf.forest, X_rf),
-         "gbt, default": (model.forest, encoded_inputs(TIMED_SIZES[-1], 13)),
+         "gbt, default": (model.forest, encoded_inputs(4096, 13)),
          **single_zoo()}, device)
-    emit(phase="kernel_single", launches=single_launches, **single_check)
+    single_variants = check_all_variants(
+        {"rf, trained": (rf.forest, X_rf), **gbt_cases, **cases}, device,
+        ("single",))
+    single_check["max_abs_err"] = max(single_check["max_abs_err"],
+                                      single_variants["max_abs_err"])
+    emit(phase="kernel_single", launches=single_launches, **single_check,
+         variants=single_variants)
 
     timings = time_kernel(model, device)
     fused_t = time_fused(device)
     hist_t = time_hist(device)
+    X_rf_all = BatchEncoder(rf.spec, rf.features).encode(
+        {k: data[k] for k in rf.features})       # 100,000 rows
     single_t = time_single({
         f"{name} N={n}": ((rf if name == "rf" else model).forest,
-                          X_rf[:n] if name == "rf" else encoded_inputs(n, 100 + n))
+                          X_rf_all[:n] if name == "rf"
+                          else encoded_inputs(n, 100 + n))
         for name, n in SINGLE_TIMED}, device)
     emit(phase="timings", card=card, **{f"N={n}": row for n, row in timings.items()},
          **{f"fused {k}": row for k, row in fused_t.items()},
@@ -1576,13 +1821,13 @@ def main() -> int:
          server_p50_ms=stats["p50_ms"], server_p99_ms=stats["p99_ms"],
          server_rows_per_s=stats["rows_per_s"])
 
-    main_n = TIMED_SIZES[0]   # the largest dispatch bucket of the server
+    main_n = MAIN_N
     t = timings[main_n]
     main_w = FUSED_TIMED[1]           # the widest level of a depth-6 tree
     f = fused_t[main_w[0]]
     main_k = HIST_TIMED[1]            # the widest level of a depth-6 tree
     h = hist_t[main_k[0]]
-    main_s = "rf N={}".format(SINGLE_TIMED[-1][1])   # the trained forest
+    main_s = "rf N={}".format(SINGLE_TIMED[2][1])   # the trained forest
     s1 = single_t[main_s]
     print(json.dumps({"kernels": [{
         "name": "forest_infer_tiled",

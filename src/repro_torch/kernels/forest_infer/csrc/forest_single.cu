@@ -1,5 +1,4 @@
-// Single-tree-per-block forest traversal over the raw SoA, for Hopper
-// (sm_90a).
+// Forest traversal over the unpacked SoA, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel forest_predict_pallas
 // (src/repro/kernels/forest_infer/forest_infer.py:94, kernel _infer_kernel
@@ -9,30 +8,34 @@
 // being the forest's global depth; a numerical node goes right when
 // x >= threshold, a node with a non-empty 256-bit category mask when the
 // bit of cat_code(x) is set; leaves self-loop. The output is the final
-// node's leaf value, (N, T, O) float32 in tree order (the SoA is not
-// packed, so there is no inv_order).
+// node's leaf value, (N, T, O) float32 in tree order.
 //
 // Design. The TPU kernel selects a node by a one-hot (TN, M) MXU matmul
 // per round against one tree's tables, because the TPU has no gather; the
 // one-hot capped M at the VMEM budget, and it carried the uint32 mask words
 // through float32, which loses the low bits of a word such as 0x80000001
-// (ROADMAP C). A GPU thread gathers directly: one thread walks one
-// (example, tree) pair and reads the words as they are (traverse.cuh, the
-// round shared with the tiled kernel). The grid keeps the TPU grid's idea,
-// example tiles x trees: a block is 256 examples of ONE tree, so its warps
-// share that tree's node table through L1 and L2.
+// (ROADMAP C). Here a thread walks one (example, tree) pair over 16-byte
+// node records (layout.py; the round is in traverse.cuh, shared with the
+// tiled kernel), reading the mask words as they are.
 //
-// Layout. Trees are on the grid's slow axis (blockIdx.y, so T <= 65,535,
-// which the wrapper checks), example tiles on the fast one, so the blocks
-// scheduled together walk the same tree. The output stays (N, T, O), the
-// reference's layout: a warp's 32 stores are strided by T * O floats, one
-// sector each. A simple kernel that is right comes first; writing a
-// (T, N, O) scratch coalesced and transposing it is left for later.
+// A block takes a group of consecutive trees and loops over the example
+// tiles of its chunk; the grid is one-dimensional (chunks x groups), so T
+// is bounded by the grid's 2^31 - 1 blocks, not by a 65,535 y axis. The
+// output is written coalesced by the block covering several trees of one
+// example tile: pairs are numbered trees fastest, and a group has
+// ceil(8 / O) trees where the plan allows, so a warp stores whole 32-byte
+// sectors of each (N, T, O) row (one tree per block would store O floats
+// per row, a quarter sector at O = 2). That was chosen over a transpose
+// through shared memory, which would only add a pass: a block holding one
+// tree cannot make its row segments longer than O floats however it
+// orders them. The group's records and masks are staged in shared memory
+// where four such blocks fit an SM (the default GBT's 8 trees x 128 nodes,
+// 16 KB); a Random Forest tree of 4,096 nodes (64 KB) is read with 16-byte
+// __ldg by blocks of 4 trees instead, which on the H100 beat staging it
+// in one-tree blocks (chip_smoke.py's timings, PERF.md).
 //
-// What bounds it on an H100: memory. A Random Forest tree of M = 4,096
-// nodes is 4,096 x (4 + 4 + 32 + 4 + 4 O) B, ~213 KB at O = 2; the kernel
-// reads it through __ldg from L1/L2. Staging a tree in shared memory (up
-// to 227 KB a block) is left for a later change.
+// What bounds it on an H100: latency (a round is a chain of dependent
+// loads), then at large N the N x T x O x 4 B of output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,44 +44,34 @@
 
 namespace {
 
-constexpr int kThreadsPerBlock = 256;
-
-__global__ void forest_single_kernel(
-    const float* __restrict__ X, int N, int F,
-    const int* __restrict__ feature, const float* __restrict__ threshold,
-    const uint32_t* __restrict__ cat_mask, const int* __restrict__ left_child,
-    const float* __restrict__ leaf_value, int T, int M, int O, int depth,
-    float* __restrict__ out) {
-  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int t = blockIdx.y;
-  const long long base = static_cast<long long>(t) * M;
-  const int node = forest_traverse::walk(X + n * F, base, depth, feature,
-                                         threshold, cat_mask, left_child);
-  const float* leaf = leaf_value + (base + node) * O;
-  float* dst = out + (n * T + t) * O;
-  for (int o = 0; o < O; ++o) dst[o] = __ldg(leaf + o);
+template <bool kStaged>
+__global__ void __launch_bounds__(forest_traverse::kThreads)
+forest_single_kernel(forest_traverse::Args a) {
+  forest_traverse::run<kStaged>(a);
 }
+
+bool opted[2] = {false, false};
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// caller has checked shapes, types, contiguity, 16-byte alignment of
-// cat_mask, 1 <= T <= 65535, O >= 1, depth >= 1, feature < F on every
-// internal node and left_child < M - 1.
-extern "C" int forest_predict_single(const float* X, int N, int F,
-                                     const int* feature,
-                                     const float* threshold,
-                                     const uint32_t* cat_mask,
-                                     const int* left_child,
-                                     const float* leaf_value, int T, int M,
-                                     int O, int depth, float* out,
-                                     void* stream) {
-  if (N == 0) return 0;
-  const dim3 grid((N + kThreadsPerBlock - 1) / kThreadsPerBlock, T);
-  forest_single_kernel<<<grid, kThreadsPerBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      X, N, F, feature, threshold, cat_mask, left_child, leaf_value, T, M, O,
-      depth, out);
-  return static_cast<int>(cudaGetLastError());
+// caller (layout.py, plan.py) has built and validated the records, masks
+// and mask_start, checked X, and planned the grid and shared bytes.
+// N > 0, T >= 1, rounds >= 1.
+extern "C" int forest_predict_single(
+    const float* X, int N, int F, const void* rec, const void* masks,
+    const int* mask_start, const float* leaf, int T, int M, int O, int rounds,
+    int staged, int group, int n_groups, int mask_cap, int rows, int chunks,
+    int smem, float* out, void* stream) {
+  forest_traverse::Args a{
+      X, N, F, static_cast<const int4*>(rec),
+      static_cast<const uint32_t*>(masks), mask_start, leaf, O, T, M, group,
+      n_groups, chunks, mask_cap, rows, nullptr, rounds, nullptr, T,
+      out};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return staged
+      ? forest_traverse::launch(forest_single_kernel<true>, a, smem, s,
+                                &opted[1])
+      : forest_traverse::launch(forest_single_kernel<false>, a, smem, s,
+                                &opted[0]);
 }

@@ -6,15 +6,19 @@
     the same inputs (a depth-packed forest from ``core.tree.pack_by_depth``)
     and the same output, (N, B*TB, O) float32 in packed tree order.
   * ``forest_predict_single`` is the port of ``forest_predict_pallas``: one
-    tree per grid row over the raw (T, M) SoA at the forest's global depth,
-    (N, T, O) float32 in tree order.
+    walk per (example, tree) over the raw (T, M) SoA at the forest's global
+    depth, (N, T, O) float32 in tree order.
 
-On CUDA tensors each launches its kernel on the current stream, or raises:
-neither falls back. On CPU tensors each runs its kernel's plain PyTorch
-version (``ref.forest_predict_packed_ref``, ``ref.forest_predict_ref``),
-which is how the tests reach them without a card. ``LAUNCHES`` and
-``SINGLE_LAUNCHES`` count kernel launches, and nothing else, so a run can
-show that its traffic went through the kernels.
+Both table-level functions check every table, build the node layout
+(``layout.build``) and call the layout-level wrappers, ``run_tiled`` and
+``run_single``, which the serving path calls with the layout that
+``ops.device_packed`` / ``ops.device_soa`` built and validated once per
+forest: per call they check X alone. On CUDA tensors a wrapper launches its
+kernel on the current stream, or raises: none falls back. On CPU tensors
+it runs the plain version, ``layout.walk``, which is how the tests reach
+them without a card. ``LAUNCHES`` and ``SINGLE_LAUNCHES`` count kernel
+launches, and nothing else, so a run can show that its traffic went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -25,11 +29,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.forest_infer.ref import (
-    MASK_WORDS,
-    forest_predict_packed_ref,
-    forest_predict_ref,
-)
+from repro_torch.kernels.forest_infer import layout as node_layout
+from repro_torch.kernels.forest_infer import plan as launch_plan
+from repro_torch.kernels.forest_infer.layout import NodeLayout
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "forest_infer.cu"
 SINGLE_SOURCE = SOURCE.with_name("forest_single.cu")
@@ -48,7 +50,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build(SOURCE).library))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.forest_infer_tiled.argtypes = [p, i, i, p, p, p, p, p, p, i, i, i, i,
-                                       p, p]
+                                       i, i, i, i, i, i, i, p, p]
     lib.forest_infer_tiled.restype = ctypes.c_int
     return lib
 
@@ -58,8 +60,8 @@ def single_library() -> ctypes.CDLL:
     """The single-tree kernel's library, built and loaded as ``library``."""
     lib = ctypes.CDLL(str(_build.build(SINGLE_SOURCE).library))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.forest_predict_single.argtypes = [p, i, i, p, p, p, p, p, i, i, i, i,
-                                          p, p]
+    lib.forest_predict_single.argtypes = [p, i, i, p, p, p, p, i, i, i, i, i,
+                                          i, i, i, i, i, i, p, p]
     lib.forest_predict_single.restype = ctypes.c_int
     return lib
 
@@ -79,6 +81,97 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_x(X, lay: NodeLayout, what: str) -> torch.device:
+    """The per-call check of a layout-level wrapper: X alone."""
+    if not isinstance(X, torch.Tensor) or X.dim() != 2:
+        raise ValueError("X must be a 2-D torch.Tensor of shape (N, F)")
+    if X.dtype != torch.float32:
+        raise TypeError(f"X must be torch.float32, got {X.dtype}")
+    if not X.is_contiguous():
+        raise ValueError("X must be contiguous")
+    dev = X.device
+    if dev != lay.device:
+        raise ValueError(f"X is on {dev}, the layout on {lay.device}")
+    if X.shape[1] < lay.min_features:
+        raise ValueError(f"X has {X.shape[1]} columns; the forest splits on "
+                         f"column {lay.min_features - 1}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got device "
+                         f"{dev}")
+    return dev
+
+
+def _stream(dev: torch.device) -> int:
+    # the kernel runs on the current stream after this returns; the caching
+    # allocator only reuses X's or the tables' memory for later work on
+    # that same stream, so no buffer here can be recycled under the kernel
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def run_tiled(X: torch.Tensor, lay: NodeLayout, *, tree_order: bool = False,
+              variant: str | None = None) -> torch.Tensor:
+    """X (N, F) f32 over a packed layout -> (N, S, O) f32 in packed slot
+    order, or (N, T, O) in tree order with ``tree_order``. ``variant``
+    forces the plan's "staged" or "global" way (see ``plan.py``)."""
+    if not lay.packed:
+        raise ValueError("run_tiled takes a packed layout")
+    dev = _check_x(X, lay, "forest_predict_tiled")
+    if tree_order and lay.slot_tree is None:
+        raise ValueError("tree order needs a layout built with inv_order")
+    N, F = X.shape
+    S, M, O, TB = lay.slots, lay.max_nodes, lay.out_dim, lay.group
+    if dev.type == "cpu":
+        return node_layout.walk(X, lay, tree_order=tree_order)
+    cols = lay.n_trees if tree_order else S
+    lib = library()
+    out = torch.empty((N, cols, O), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    pl = launch_plan.tiled_plan(N, S // TB, TB, M, lay.group_masks[0],
+                                variant)
+    global LAUNCHES
+    err = lib.forest_infer_tiled(
+        X.data_ptr(), N, F, lay.records.data_ptr(), lay.masks.data_ptr(),
+        lay.mask_start.data_ptr(), lay.leaf.data_ptr(),
+        lay.block_depth.data_ptr(),
+        lay.slot_tree.data_ptr() if tree_order else None, S, M, O, cols,
+        *pl.kernel_args(), out.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"forest_infer_tiled launch failed: CUDA error "
+                           f"{err} ({pl})")
+    LAUNCHES += 1
+    return out
+
+
+def run_single(X: torch.Tensor, lay: NodeLayout, *,
+               variant: str | None = None) -> torch.Tensor:
+    """X (N, F) f32 over an unpacked layout -> (N, T, O) f32 in tree order,
+    every tree walked for the layout's ``depth`` rounds. ``variant`` as for
+    ``run_tiled``."""
+    if lay.packed:
+        raise ValueError("run_single takes an unpacked layout")
+    dev = _check_x(X, lay, "forest_predict_single")
+    N, F = X.shape
+    T, M, O = lay.slots, lay.max_nodes, lay.out_dim
+    if dev.type == "cpu":
+        return node_layout.walk(X, lay)
+    out = torch.empty((N, T, O), dtype=torch.float32, device=dev)
+    if N == 0 or T == 0:
+        return out
+    lib = single_library()
+    pl = launch_plan.single_plan(N, T, M, O, lay.group_masks, variant)
+    global SINGLE_LAUNCHES
+    err = lib.forest_predict_single(
+        X.data_ptr(), N, F, lay.records.data_ptr(), lay.masks.data_ptr(),
+        lay.mask_start.data_ptr(), lay.leaf.data_ptr(), T, M, O, lay.depth,
+        *pl.kernel_args(), out.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"forest_predict_single launch failed: CUDA error "
+                           f"{err} ({pl})")
+    SINGLE_LAUNCHES += 1
+    return out
+
+
 def forest_predict_tiled(X, feature, threshold, cat_mask, left_child,
                          leaf_value, block_depth) -> torch.Tensor:
     """X (N, F) f32; feature/left_child (B, TB, M) i32; threshold
@@ -86,9 +179,9 @@ def forest_predict_tiled(X, feature, threshold, cat_mask, left_child,
     words bit for bit; leaf_value (B, TB, M, O) f32; block_depth (B,) i32
     -> (N, B*TB, O) f32 in packed tree order.
 
-    Preconditions the caller guarantees (``ops.device_packed`` checks them
-    once per forest): every internal node's feature is < F and every
-    left_child is < M - 1."""
+    Checks every table, builds their layout (which checks that every
+    child is < M - 1) and runs ``run_tiled``; X must be as wide as the
+    largest column an internal node reads."""
     if not isinstance(X, torch.Tensor) or X.dim() != 2:
         raise ValueError("X must be a 2-D torch.Tensor of shape (N, F)")
     N, F = X.shape
@@ -100,40 +193,16 @@ def forest_predict_tiled(X, feature, threshold, cat_mask, left_child,
     _check("X", X, torch.float32, (N, F), dev)
     _check("feature", feature, torch.int32, (B, TB, M), dev)
     _check("threshold", threshold, torch.float32, (B, TB, M), dev)
-    _check("cat_mask", cat_mask, torch.int32, (B, TB, M, MASK_WORDS), dev)
+    _check("cat_mask", cat_mask, torch.int32, (B, TB, M, 8), dev)
     _check("left_child", left_child, torch.int32, (B, TB, M), dev)
     _check("leaf_value", leaf_value, torch.float32, (B, TB, M, O), dev)
     _check("block_depth", block_depth, torch.int32, (B,), dev)
-    if dev.type == "cpu":
-        return forest_predict_packed_ref(X, feature, threshold, cat_mask,
-                                         left_child, leaf_value, block_depth)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"forest_predict_tiled runs on CUDA or CPU tensors, "
                          f"got device {dev}")
-    if not 1 <= TB <= 256 or not 1 <= B <= 65535 or O < 1:
-        raise ValueError(f"unsupported packed shape B={B}, TB={TB}, O={O}: "
-                         "the kernel takes 1 <= TB <= 256, 1 <= B <= 65535")
-    if cat_mask.data_ptr() % 16:
-        raise ValueError("cat_mask must be 16-byte aligned")
-    lib = library()
-    out = torch.empty((N, B * TB, O), dtype=torch.float32, device=dev)
-    if N == 0:
-        return out
-    # the kernel runs on the current stream after this returns; the caching
-    # allocator only reuses X's or the tables' memory for later work on
-    # that same stream, so no buffer here can be recycled under the kernel
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    global LAUNCHES
-    err = lib.forest_infer_tiled(
-        X.data_ptr(), N, F, feature.data_ptr(), threshold.data_ptr(),
-        cat_mask.data_ptr(), left_child.data_ptr(), leaf_value.data_ptr(),
-        block_depth.data_ptr(), B, TB, M, O, out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"forest_infer_tiled launch failed: CUDA error "
-                           f"{err} (grid {-(-N // (256 // TB))} x {B}, block "
-                           f"{TB} x {256 // TB})")
-    LAUNCHES += 1
-    return out
+    lay = node_layout.build(feature, threshold, cat_mask, left_child,
+                            leaf_value, block_depth=block_depth)
+    return run_tiled(X, lay)
 
 
 def forest_predict_single(X, feature, threshold, cat_mask, left_child,
@@ -143,9 +212,7 @@ def forest_predict_single(X, feature, threshold, cat_mask, left_child,
     leaf_value (T, M, O) f32; depth: the forest's global depth -> (N, T, O)
     f32 in tree order, every tree walked for ``max(1, depth)`` rounds.
 
-    Preconditions the caller guarantees (``ops.device_soa`` checks them
-    once per forest): every internal node's feature is < F and every
-    left_child is < M - 1."""
+    Checks every table, builds their layout and runs ``run_single``."""
     if not isinstance(X, torch.Tensor) or X.dim() != 2:
         raise ValueError("X must be a 2-D torch.Tensor of shape (N, F)")
     N, F = X.shape
@@ -157,34 +224,12 @@ def forest_predict_single(X, feature, threshold, cat_mask, left_child,
     _check("X", X, torch.float32, (N, F), dev)
     _check("feature", feature, torch.int32, (T, M), dev)
     _check("threshold", threshold, torch.float32, (T, M), dev)
-    _check("cat_mask", cat_mask, torch.int32, (T, M, MASK_WORDS), dev)
+    _check("cat_mask", cat_mask, torch.int32, (T, M, 8), dev)
     _check("left_child", left_child, torch.int32, (T, M), dev)
     _check("leaf_value", leaf_value, torch.float32, (T, M, O), dev)
-    rounds = max(1, int(depth))
-    if dev.type == "cpu":
-        return forest_predict_ref(X, feature, threshold, cat_mask, left_child,
-                                  leaf_value, depth=rounds)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"forest_predict_single runs on CUDA or CPU tensors, "
                          f"got device {dev}")
-    if not 1 <= T <= 65535 or O < 1:
-        raise ValueError(f"unsupported forest shape T={T}, O={O}: the kernel "
-                         "puts the trees on a grid axis, 1 <= T <= 65535")
-    if cat_mask.data_ptr() % 16:
-        raise ValueError("cat_mask must be 16-byte aligned")
-    out = torch.empty((N, T, O), dtype=torch.float32, device=dev)
-    if N == 0:
-        return out
-    lib = single_library()
-    # launched on the current stream, like forest_predict_tiled
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    global SINGLE_LAUNCHES
-    err = lib.forest_predict_single(
-        X.data_ptr(), N, F, feature.data_ptr(), threshold.data_ptr(),
-        cat_mask.data_ptr(), left_child.data_ptr(), leaf_value.data_ptr(),
-        T, M, O, rounds, out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"forest_predict_single launch failed: CUDA error "
-                           f"{err} (grid {-(-N // 256)} x {T}, block 256)")
-    SINGLE_LAUNCHES += 1
-    return out
+    lay = node_layout.build(feature, threshold, cat_mask, left_child,
+                            leaf_value, depth=depth)
+    return run_single(X, lay)

@@ -3,20 +3,23 @@
 A compiled forest is uploaded to its device ONCE: ``forest_predict`` keeps
 a small id-keyed cache mapping a live Forest to its tables on each device —
 (a) the raw SoA (the "single" and "ref" impls) and (b) the depth-packed
-layout (the "cuda" impl) — so repeat predictions do no host-to-device table
-transfers and no re-packing. Entries are validated against a weakref (id reuse after
-GC cannot alias), evicted the moment the forest is collected, and LRU-capped.
+layout (the "cuda" impl), each with the kernels' node layout
+(``layout.build``: 16-byte records and a mask side table, validated when
+built) — so repeat predictions do no host-to-device table transfers, no
+re-packing and no table checks. Entries are validated against a weakref (id
+reuse after GC cannot alias), evicted the moment the forest is collected,
+and LRU-capped.
 
 impls:
-  * "cuda" — the traversal kernel over the depth-packed layout
-    (``forest_infer.forest_predict_tiled``). On a CUDA device it launches
+  * "cuda" — the tiled traversal kernel over the depth-packed layout
+    (``forest_infer.run_tiled``), storing each output in tree order itself.
+    On a CUDA device it launches the kernel or raises; on the CPU it runs
+    the kernel's plain version.
+  * "single" — the single-tree traversal kernel over the raw SoA at the
+    forest's global depth (``forest_infer.run_single``, the port of the
+    reference's ``impl="pallas_single"``). On a CUDA device it launches
     the kernel or raises; on the CPU it runs the kernel's plain version.
-  * "single" — the single-tree-per-block traversal kernel over the raw
-    SoA at the forest's global depth (``forest_infer.forest_predict_single``,
-    the port of the reference's ``impl="pallas_single"``). On a CUDA device
-    it launches the kernel or raises; on the CPU it runs the kernel's plain
-    version, which is the "ref" impl.
-  * "ref"  — the plain PyTorch gather traversal over the raw SoA
+  * "ref"  — the plain PyTorch gather traversal over the raw SoA tables
     (``ref.forest_predict_ref``), on either device.
 """
 from __future__ import annotations
@@ -30,10 +33,8 @@ import torch
 
 from repro_torch.core.api import YdfError
 from repro_torch.core.tree import Forest, pack_by_depth
-from repro_torch.kernels.forest_infer.forest_infer import (
-    forest_predict_single,
-    forest_predict_tiled,
-)
+from repro_torch.kernels.forest_infer import layout as node_layout
+from repro_torch.kernels.forest_infer.forest_infer import run_single, run_tiled
 from repro_torch.kernels.forest_infer.ref import forest_predict_ref
 
 IMPLS = ("cuda", "single", "ref")
@@ -69,19 +70,17 @@ def _mask_words(cat_mask: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(cat_mask, np.uint32).view(np.int32)
 
 
-def _min_features(feature: np.ndarray, left_child: np.ndarray) -> int:
-    """Columns X must have: 1 + the largest feature of an internal node."""
-    internal = left_child >= 0
-    return int(feature[internal].max()) + 1 if internal.any() else 0
-
-
 class DeviceSoA(NamedTuple):
     feature: torch.Tensor      # (T, M) int32
     threshold: torch.Tensor    # (T, M) float32
     cat_mask: torch.Tensor     # (T, M, 8) int32 words
     left_child: torch.Tensor   # (T, M) int32
     leaf_value: torch.Tensor   # (T, M, O) float32
-    min_features: int
+    layout: node_layout.NodeLayout  # the single-tree kernel's records
+
+    @property
+    def min_features(self) -> int:
+        return self.layout.min_features
 
 
 class DevicePacked(NamedTuple):
@@ -92,7 +91,11 @@ class DevicePacked(NamedTuple):
     leaf_value: torch.Tensor   # (B, TB, M, O) float32
     block_depth: torch.Tensor  # (B,) int32
     inv_order: torch.Tensor    # (T,) int64: original tree t at packed slot
-    min_features: int
+    layout: node_layout.NodeLayout  # the tiled kernel's records
+
+    @property
+    def min_features(self) -> int:
+        return self.layout.min_features
 
     @property
     def tables(self) -> tuple:
@@ -108,52 +111,46 @@ def _check_device(device: torch.device) -> None:
             "CUDA device; pass device='cpu' to run on the CPU.")
 
 
-def _check_children(left_child: np.ndarray, max_nodes: int) -> None:
-    if (left_child >= max_nodes - 1).any():
-        raise YdfError(
-            "The forest has a child index outside its node capacity "
-            f"({max_nodes}); its SoA is corrupt. Rebuild or re-convert "
-            "the model.")
-
-
 def device_soa(forest: Forest, device) -> DeviceSoA:
-    """Raw Forest SoA on ``device``, uploaded once per (forest, device).
-    Checks the single-tree kernel's precondition on the host: children
-    inside the node capacity."""
+    """Raw Forest SoA on ``device`` with its node layout, uploaded, built
+    and validated once per (forest, device); a child outside the node
+    capacity raises YdfError before anything is uploaded."""
     device = torch.device(device)
     c = _forest_cache(forest)
     key = ("soa", str(device))
     if key not in c:
         _check_device(device)
-        _check_children(forest.left_child, forest.max_nodes)
+        node_layout.check_children(forest.left_child, forest.max_nodes)
         up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        c[key] = DeviceSoA(
-            up(forest.feature.astype(np.int32)),
-            up(forest.threshold.astype(np.float32)),
-            up(_mask_words(forest.cat_mask)),
-            up(forest.left_child.astype(np.int32)),
-            up(forest.leaf_value.astype(np.float32)),
-            _min_features(forest.feature, forest.left_child))
+        tabs = (up(forest.feature.astype(np.int32)),
+                up(forest.threshold.astype(np.float32)),
+                up(_mask_words(forest.cat_mask)),
+                up(forest.left_child.astype(np.int32)),
+                up(forest.leaf_value.astype(np.float32)))
+        c[key] = DeviceSoA(*tabs, node_layout.build(
+            *tabs, depth=int(forest.depth)))
     return c[key]
 
 
 def device_packed(forest: Forest, device) -> DevicePacked:
-    """Depth-packed layout (``pack_by_depth``) on ``device``, packed and
-    uploaded once per (forest, device). Checks the kernel's preconditions
-    on the host: children inside the node capacity."""
+    """Depth-packed tables (``pack_by_depth``) on ``device`` with their node
+    layout, packed, uploaded, built and validated once per (forest,
+    device); a child outside the node capacity raises YdfError before
+    anything is uploaded."""
     device = torch.device(device)
     c = _forest_cache(forest)
     key = ("packed", str(device))
     if key not in c:
         _check_device(device)
         p = pack_by_depth(forest)
-        _check_children(p.left_child, p.max_nodes)
+        node_layout.check_children(p.left_child, p.max_nodes)
         up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        c[key] = DevicePacked(
-            up(p.feature), up(p.threshold), up(_mask_words(p.cat_mask)),
-            up(p.left_child), up(p.leaf_value),
-            up(p.block_depth.reshape(-1)), up(p.inv_order.astype(np.int64)),
-            _min_features(p.feature, p.left_child))
+        tabs = (up(p.feature), up(p.threshold), up(_mask_words(p.cat_mask)),
+                up(p.left_child), up(p.leaf_value),
+                up(p.block_depth.reshape(-1)))
+        inv_order = up(p.inv_order.astype(np.int64))
+        c[key] = DevicePacked(*tabs, inv_order, node_layout.build(
+            *tabs[:5], block_depth=tabs[5], inv_order=inv_order))
     return c[key]
 
 
@@ -182,6 +179,5 @@ def forest_predict(forest: Forest, X, impl: str = "cuda",
     if impl == "ref":
         return forest_predict_ref(Xd, *tabs[:5], depth=int(forest.depth))
     if impl == "single":
-        return forest_predict_single(Xd, *tabs[:5], depth=int(forest.depth))
-    out = forest_predict_tiled(Xd, *tabs.tables)
-    return torch.index_select(out, 1, tabs.inv_order)
+        return run_single(Xd, tabs.layout)
+    return run_tiled(Xd, tabs.layout, tree_order=True)

@@ -369,8 +369,8 @@ def test_single_kernel_zoo_and_wide_forests(cuda):
 def test_single_counts_launches_and_never_takes_the_plain_version(
         cuda, monkeypatch):
     import chip_smoke
-    from repro_torch.kernels.forest_infer import forest_infer, ops
-    monkeypatch.setattr(forest_infer, "forest_predict_ref", _refuse)
+    from repro_torch.kernels.forest_infer import forest_infer, layout, ops
+    monkeypatch.setattr(layout, "walk", _refuse)      # the plain version
     model = chip_smoke.build_default_gbt()
     X = chip_smoke.encoded_inputs(100, seed=2)
     soa = ops.device_soa(model.forest, cuda)
@@ -382,16 +382,82 @@ def test_single_counts_launches_and_never_takes_the_plain_version(
     assert forest_infer.SINGLE_LAUNCHES == before + 2
 
 
-def test_single_refuses_more_trees_than_a_grid_axis_holds(cuda):
-    from repro_torch.kernels.forest_infer import forest_infer
-    T = 65536
-    X = torch.zeros((4, 2), device=cuda)
-    i32 = dict(dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="65535"):
-        forest_infer.forest_predict_single(
-            X, torch.full((T, 1), -1, **i32), torch.zeros((T, 1), device=cuda),
-            torch.zeros((T, 1, 8), **i32), torch.full((T, 1), -1, **i32),
-            torch.zeros((T, 1, 1), device=cuda), depth=1)
+def test_single_runs_more_trees_than_a_grid_axis_held(cuda):
+    """The grid is one-dimensional, so 70,000 trees (more than the 65,535
+    of a y axis; one split each, on alternating columns) run in each
+    variant and equal the plain version."""
+    from repro_torch.kernels.forest_infer import forest_infer, layout, plan
+    from repro_torch.kernels.forest_infer.ref import forest_predict_ref
+    T, M = 70_000, 4
+    rng = np.random.default_rng(12)
+    feature = np.full((T, M), -1, np.int32)
+    feature[:, 0] = np.arange(T) % 2
+    left = np.full((T, M), -1, np.int32)
+    left[:, 0] = 1
+    tabs = [torch.from_numpy(a).to(cuda) for a in (
+        feature, rng.normal(size=(T, M)).astype(np.float32),
+        np.zeros((T, M, 8), np.int32), left,
+        rng.normal(size=(T, M, 1)).astype(np.float32))]
+    X = torch.from_numpy(rng.normal(size=(40, 2)).astype(np.float32)).to(cuda)
+    want = forest_predict_ref(X, *tabs, depth=1)
+    lay = layout.build(*tabs, depth=1)
+    for variant in plan.VARIANTS:
+        got = forest_infer.run_single(X, lay, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), variant
+    assert torch.equal(forest_infer.forest_predict_single(X, *tabs, depth=1),
+                       want)
+
+
+# ------------------------------------------ both traversal kernels, redesigned
+
+def test_traversal_variants_on_the_zoo_big_trees_and_wide_leaves(cuda):
+    """Both kernels in each plan variant their shapes allow against their
+    plain versions (``torch.equal``, the tiled kernel in packed and tree
+    order) and predict_naive: the hand-built zoo, trees of 16,384 nodes
+    (record-global only) and O = 3."""
+    import chip_smoke
+    cases = chip_smoke.traversal_cases()
+    r = chip_smoke.check_all_variants(cases, cuda, ("tiled", "single"))
+    assert r["max_abs_err"] == 0.0
+    big = r["cases"][f"{chip_smoke.BIG_NODES} nodes"]["variants"]
+    assert set(big["tiled"]) == set(big["single"]) == {"global"}
+    assert set(r["cases"]["O=3"]["variants"]["single"]) == {"staged", "global"}
+
+
+@pytest.mark.parametrize("n", [1, 1024, 4099])
+def test_traversal_variants_on_the_default_gbt(cuda, n):
+    import chip_smoke
+    model = chip_smoke.build_default_gbt()
+    r = chip_smoke.check_variants(model.forest,
+                                  chip_smoke.encoded_inputs(n, seed=n), cuda)
+    assert all(set(v) == {"staged", "global"} for v in r["variants"].values())
+
+
+def test_forest_predict_is_one_launch_with_the_tree_order_store(
+        cuda, monkeypatch):
+    """impl="cuda" launches the tiled kernel once a call and stores tree
+    order itself: no index_select, no plain version, and 0 rows launch
+    nothing."""
+    import chip_smoke
+    from repro_torch.kernels.forest_infer import forest_infer, layout, ops
+    from repro_torch.kernels.forest_infer.ref import forest_predict_packed_ref
+    monkeypatch.setattr(layout, "walk", _refuse)
+    monkeypatch.setattr(torch, "index_select", _refuse)
+    model = chip_smoke.build_default_gbt()
+    packed = ops.device_packed(model.forest, cuda)
+    X = torch.from_numpy(chip_smoke.encoded_inputs(300, seed=4)).to(cuda)
+    before = forest_infer.LAUNCHES
+    got = ops.forest_predict(model.forest, X, "cuda", cuda)
+    torch.cuda.synchronize()
+    assert forest_infer.LAUNCHES == before + 1
+    want = forest_predict_packed_ref(X, *packed.tables)[:, packed.inv_order]
+    assert torch.equal(got, want)
+    empty = ops.forest_predict(model.forest, X[:0], "cuda", cuda)
+    single = forest_infer.run_single(X[:0], ops.device_soa(model.forest,
+                                                          cuda).layout)
+    assert empty.shape == (0, 300, 1) and single.shape == (0, 300, 1)
+    assert forest_infer.LAUNCHES == before + 1
 
 
 # ------------------------------------- Random Forest and CART on the card

@@ -370,6 +370,48 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(
         forest_infer.forest_predict_tiled(**args)
 
 
+@pytest.mark.parametrize("bad,exc", [
+    (lambda X: X.double(), TypeError),
+    (lambda X: X.t(), ValueError),                      # not contiguous
+    (lambda X: X[:, :1].contiguous(), ValueError),      # too narrow
+    (lambda X: X[0], ValueError),                       # 1-D
+    (lambda X: X.to("meta"), ValueError),               # not the layout's device
+])
+def test_layout_wrappers_check_x_alone(all_categorical_forest, bad, exc):
+    """The layout-level wrappers trust the layout and check X per call."""
+    pf = to_port(all_categorical_forest)
+    X = torch.from_numpy(inputs(all_categorical_forest, 6))
+    with pytest.raises(exc):
+        forest_infer.run_tiled(bad(X), ops.device_packed(pf, CPU).layout)
+    with pytest.raises(exc):
+        forest_infer.run_single(bad(X), ops.device_soa(pf, CPU).layout)
+
+
+def test_layout_wrappers_take_only_their_own_layout(stump_forest):
+    pf = to_port(stump_forest)
+    X = torch.from_numpy(inputs(stump_forest, 3))
+    with pytest.raises(ValueError, match="packed"):
+        forest_infer.run_tiled(X, ops.device_soa(pf, CPU).layout)
+    with pytest.raises(ValueError, match="unpacked"):
+        forest_infer.run_single(X, ops.device_packed(pf, CPU).layout)
+
+
+def test_table_level_wrappers_equal_the_layout_wrappers(ragged_mixed_forest):
+    pf = to_port(ragged_mixed_forest)
+    packed, soa = ops.device_packed(pf, CPU), ops.device_soa(pf, CPU)
+    X = torch.from_numpy(inputs(ragged_mixed_forest, 33, hostile=True))
+    before = forest_infer.LAUNCHES, forest_infer.SINGLE_LAUNCHES
+    assert torch.equal(forest_infer.forest_predict_tiled(X, *packed.tables),
+                       forest_infer.run_tiled(X, packed.layout))
+    assert torch.equal(
+        forest_infer.forest_predict_single(X, *soa[:5], depth=pf.depth),
+        forest_infer.run_single(X, soa.layout))
+    assert torch.equal(forest_infer.run_tiled(X, packed.layout,
+                                              tree_order=True),
+                       ops.forest_predict(pf, X, "cuda", CPU))
+    assert (forest_infer.LAUNCHES, forest_infer.SINGLE_LAUNCHES) == before
+
+
 def test_wrapper_raises_on_a_device_it_does_not_run_on(stump_forest):
     packed = _packed_cpu(stump_forest)
     meta = [t.to("meta") for t in packed.tables]
