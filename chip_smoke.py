@@ -132,6 +132,31 @@ JSON line each:
                      reading over ~50 requests, server built before the clock
                      starts).
 
+ 17. model_io      — the trained device-engine GBT, the 16-tree Random Forest
+                     and the CART tree saved (``Model.save``: plain data,
+                     no pickle) and loaded (``Model.load``) in a scratch
+                     directory under ``build/``: each loaded model holds no
+                     predictor, predicts the validation rows through the cuda
+                     engine (B2, counts reset just before, read just after)
+                     ``array_equal`` with its prediction before the save, and
+                     gives equal ``evaluate()`` metrics, ``summary()`` and
+                     ``variable_importances()``; the loaded forest through
+                     ``forest_predict(impl="single")`` (B4) equals the saved
+                     forest's and ``predict_naive``. Save and load seconds
+                     and the directory's bytes.
+ 18. checkpoint    — stop and resume on the card: the default GBT on the
+                     device engine at full width (CKPT_EVERY-tree
+                     checkpoints, stopped after CKPT_STOP_AT trees,
+                     ``resume_training(device="cuda")``) equals the train
+                     phase's uninterrupted forest on every Forest field (B1
+                     counted over both runs); the device-engine RF stopped
+                     after its first block of 8 and resumed equals
+                     train_rf_device's forest; the batched GBT (B3) and
+                     CART's grown stage, cut to CKPT_ROWS rows and
+                     CKPT_TREES trees, each equal an uninterrupted run of
+                     the same cut. Checkpoint write seconds and bytes, and
+                     resume seconds.
+
 Then the kernels line (``{"kernels": [...]}``), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 1 at once.
@@ -140,9 +165,12 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import os
 import platform
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -207,6 +235,11 @@ FOREST_FIELDS = STRUCT_FIELDS + ("threshold", "leaf_value", "split_gain")
 SINGLE_TIMED = (("gbt", 1024), ("gbt", 4096), ("rf", 10_000),
                 ("rf", 100_000))
 NAIVE_ROWS = 512          # rows held to the host's per-example predict_naive
+# checkpointed training: the full-width GBT checkpoints every CKPT_EVERY
+# trees and is stopped after CKPT_STOP_AT; the batched GBT and CART's grown
+# stage are cut to CKPT_ROWS rows (and the GBT to CKPT_TREES trees)
+CKPT_EVERY, CKPT_STOP_AT = 50, 100
+CKPT_ROWS, CKPT_TREES = 20_000, 20
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -869,13 +902,15 @@ def higgs_like(n: int = HIGGS["n"]) -> dict:
     return make_dataset(SyntheticSpec(**{**HIGGS, "n": n}))
 
 
-def train_default(data: dict, device, label: str = "label", **hparams):
+def train_default(data: dict, device, label: str = "label", checkpoint=None,
+                  **hparams):
     """The default GBT (batched engine, histogram_backend "auto": the CUDA
     histogram kernel on a CUDA device, numpy on the CPU), trained on
     ``device``."""
     from repro_torch.core.gbt import GradientBoostedTreesLearner
     return GradientBoostedTreesLearner(
-        label=label, seed=LEARNER_SEED, device=device, **hparams).train(data)
+        label=label, seed=LEARNER_SEED, device=device,
+        **hparams).train(data, checkpoint=checkpoint)
 
 
 def train_gbt(data: dict, device, **hparams):
@@ -1406,13 +1441,15 @@ def time_single(cases: dict, device) -> dict:
 
 # ------------------------------------------------------- Random Forest, CART
 
-def train_rf(data: dict, device, label: str = "label", **hparams):
+def train_rf(data: dict, device, label: str = "label", checkpoint=None,
+             **hparams):
     """The default Random Forest (batched engine, histogram_backend "auto":
     the CUDA histogram kernel on a CUDA device, numpy lockstep blocks on
     the CPU), trained on ``device``."""
     from repro_torch.core.rf import RandomForestLearner
     return RandomForestLearner(
-        label=label, seed=LEARNER_SEED, device=device, **hparams).train(data)
+        label=label, seed=LEARNER_SEED, device=device,
+        **hparams).train(data, checkpoint=checkpoint)
 
 
 def train_rf_device(data: dict, device, **hparams):
@@ -1420,11 +1457,12 @@ def train_rf_device(data: dict, device, **hparams):
     return train_rf(data, device, growth_engine="device", **hparams)
 
 
-def train_cart(data: dict, device, label: str = "label", **hparams):
+def train_cart(data: dict, device, label: str = "label", checkpoint=None,
+               **hparams):
     """The default CART tree, trained on ``device``."""
     from repro_torch.core.cart import CartLearner
     return CartLearner(label=label, seed=LEARNER_SEED, device=device,
-                       **hparams).train(data)
+                       **hparams).train(data, checkpoint=checkpoint)
 
 
 def identical(a, b, n_trees: int | None = None) -> bool:
@@ -1528,10 +1566,10 @@ def run_rf_device(data: dict, device, batched) -> tuple:
         "oob_accuracy": model.self_evaluation["accuracy"]}
 
 
-def run_cart(data: dict, device, backend) -> dict:
+def run_cart(data: dict, device, backend) -> tuple:
     """The default CART tree on the card (histogram kernel, launches ==
     builds, then host pruning), and on COMPARE_ROWS rows the card's tree
-    equal to the CPU's on every field."""
+    equal to the CPU's on every field. Returns (model, summary)."""
     from repro_torch.kernels.histogram import histogram
     from repro_torch.obs import clock, trace
     from repro_torch.obs.export import phase_summary
@@ -1549,7 +1587,7 @@ def run_cart(data: dict, device, backend) -> dict:
         raise AssertionError(f"{builds} histogram builds made {launches} "
                              "kernel launches")
     spans = phase_summary(tracer)
-    return {"rows": len(data["label"]), "seconds": seconds,
+    return model, {"rows": len(data["label"]), "seconds": seconds,
             "grow_s": spans["cart/grow"]["total_s"],
             "prune_s": spans["cart/prune"]["total_s"],
             "builds": builds, "launches": launches,
@@ -1616,6 +1654,182 @@ def run_wide(device, backend) -> dict:
     out["rf_device"] = {"launches": launches, "card_runs_identical": True,
                         "card_vs_cpu_agree": agree,
                         "nodes": int(card.forest.n_nodes.sum())}
+    return out
+
+
+# ------------------------------------------------ saving and checkpoints
+
+def same_forest(a, b) -> bool:
+    """Every Forest field of two forests equal: the arrays, the depth and
+    the output dimension."""
+    keys = FOREST_FIELDS + ("tree_class", "init_pred")
+    return (a.n_trees == b.n_trees and a.depth == b.depth
+            and a.out_dim == b.out_dim
+            and all(np.array_equal(getattr(a, k), getattr(b, k)) for k in keys))
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def scratch_dir() -> str:
+    """A fresh directory under the checkout's git-ignored ``build/``."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build")
+
+
+def check_model_io(models: dict, rows: dict, device, scratch: str) -> dict:
+    """Save and load each of ``models`` (name -> model trained on the
+    card); the loaded model's cuda-engine predictions of ``rows`` equal the
+    ones before the save (``array_equal``), as do its evaluate() metrics,
+    summary() and variable_importances(); on a Random Forest, the loaded
+    forest through the single-tree kernel equals the saved one's and
+    ``predict_naive``. The traversal counts are reset just before the
+    loaded models predict and read just after."""
+    import torch
+    from repro_torch.core import Model
+    from repro_torch.core.dataspec import BatchEncoder
+    from repro_torch.core.tree import predict_naive
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    from repro_torch.obs import clock
+    out = {}
+    loaded = {}
+    for name, model in models.items():
+        feats = {k: rows[k] for k in model.features}
+        before = model.predict(feats, device=device)
+        ev = model.evaluate(rows, device=device).metrics
+        text, vi = model.summary(), model.variable_importances()
+        path = os.path.join(scratch, name)
+        t0 = clock.perf()
+        model.save(path)
+        save_s = clock.perf() - t0
+        t0 = clock.perf()
+        back = Model.load(path)
+        load_s = clock.perf() - t0
+        if back._predictors or not same_forest(back.forest, model.forest):
+            raise AssertionError(f"{name}: the loaded model differs")
+        loaded[name] = (back, feats, before, ev, text, vi)
+        out[name] = {"save_s": save_s, "load_s": load_s,
+                     "dir_bytes": dir_bytes(path),
+                     "files": sorted(os.listdir(path))}
+    forest_infer.LAUNCHES = 0            # the loaded models predict from here
+    forest_infer.SINGLE_LAUNCHES = 0
+    for name, (back, feats, before, ev, text, vi) in loaded.items():
+        after = back.predict(feats, device=device)
+        if back.predictor(device=device).name != "cuda":
+            raise AssertionError(f"{name}: loaded model served by "
+                                 f"{back.predictor(device=device).name}")
+        if not np.array_equal(before, after):
+            raise AssertionError(f"{name}: predictions after the load differ")
+        if back.evaluate(rows, device=device).metrics != ev:
+            raise AssertionError(f"{name}: evaluate() after the load differs")
+        if back.summary() != text or back.variable_importances() != vi:
+            raise AssertionError(f"{name}: summary or importances differ")
+        if name == "rf":
+            X = BatchEncoder(back.spec, back.features).encode(feats)
+            got = ops.forest_predict(back.forest, X, "single", device)
+            want = ops.forest_predict(models[name].forest, X, "single", device)
+            naive = predict_naive(back.forest, X[:NAIVE_ROWS])
+            if not (torch.equal(got, want) and np.array_equal(
+                    got[:NAIVE_ROWS].cpu().numpy(), naive)):
+                raise AssertionError("loaded RF: single-tree traversal differs")
+    torch.cuda.synchronize()
+    launches = forest_infer.LAUNCHES     # ... and read here
+    single = forest_infer.SINGLE_LAUNCHES
+    if launches < len(models) or single != 2:
+        raise AssertionError(f"loaded models made {launches} tiled and "
+                             f"{single} single-tree launches")
+    return {"models": out, "rows": len(rows["label"]),
+            "tiled_launches": launches, "single_launches": single}
+
+
+def stop_after(n: int):
+    """A ``CheckpointPolicy.cancel`` probe that stops training at its
+    ``n``-th poll (one poll per tree, or per block for a Random Forest)."""
+    calls = {"n": 0}
+
+    def cancel() -> bool:
+        calls["n"] += 1
+        return calls["n"] >= n
+    return cancel
+
+
+def stop_and_resume(fit, data: dict, device, scratch: str, name: str,
+                    stop_at: int, every: int, **hparams) -> tuple:
+    """``fit`` with a checkpoint policy that stops it at ``stop_at`` polls,
+    then ``resume_training`` on ``device``. Returns (resumed model, numbers
+    of the checkpoints and the resume)."""
+    from repro_torch.core import CheckpointPolicy, resume_training
+    from repro_torch.obs import clock
+    ckdir = os.path.join(scratch, name)
+    policy = CheckpointPolicy(ckdir, every_n_trees=every, keep_last=2,
+                              cancel=stop_after(stop_at))
+    t0 = clock.perf()
+    part = fit(data, device, checkpoint=policy, **hparams)
+    part_s = clock.perf() - t0
+    if not part.training_logs["interrupted"]:
+        raise AssertionError(f"{name}: the stop did not interrupt training")
+    newest = max(p for p in os.listdir(ckdir) if "." not in p)
+    ckpt_bytes = dir_bytes(os.path.join(ckdir, newest))
+    t0 = clock.perf()
+    resumed = resume_training(ckdir, data, device=device)
+    resume_s = clock.perf() - t0
+    events = (part.training_logs["resilience"]
+              + resumed.training_logs["resilience"])
+    saves = [e["save_s"] for e in events if e["event"] == "checkpoint"]
+    restore = [e["restore_s"] for e in events if e["event"] == "resume"]
+    return resumed, {
+        "trees_at_stop": part.forest.n_trees, "trees": resumed.forest.n_trees,
+        "interrupted_run_s": part_s, "resume_s": resume_s,
+        "restore_s": restore[0], "checkpoints": len(saves),
+        "save_s_max": max(saves), "save_s_total": sum(saves),
+        "checkpoint_bytes": ckpt_bytes}
+
+
+def check_checkpoint(data: dict, trained, rf_device, device,
+                     scratch: str) -> dict:
+    """Stop and resume on the card, each against its uninterrupted card
+    run: the device-engine GBT at full width against the train phase's
+    ``trained`` (B1), the device-engine RF against ``rf_device`` (B1), and
+    at CKPT_ROWS rows the batched GBT (B3) and CART's grown stage (B3). The
+    kernels' counts are reset just before each stopped run and read just
+    after its resume."""
+    from repro_torch.kernels.histogram import fused, histogram
+    out = {}
+    fused.LAUNCHES = 0                   # the GBT's two runs start here
+    gbt, out["gbt_device"] = stop_and_resume(
+        train_gbt, data, device, scratch, "gbt_device", CKPT_STOP_AT,
+        CKPT_EVERY)
+    out["gbt_device"]["launches"] = fused.LAUNCHES   # ... and end here
+    if not same_forest(gbt.forest, trained.forest):
+        raise AssertionError("resumed device-engine GBT != uninterrupted")
+    block = rf_device.training_logs["tree_parallelism"]
+    fused.LAUNCHES = 0                   # the RF's two runs start here
+    rf, out["rf_device"] = stop_and_resume(
+        train_rf_device, data, device, scratch, "rf_device", 1, block,
+        num_trees=rf_device.forest.n_trees)
+    out["rf_device"]["launches"] = fused.LAUNCHES    # ... and end here
+    if out["rf_device"]["trees_at_stop"] != block:
+        raise AssertionError(f"RF stopped at {out['rf_device']}")
+    if not same_forest(rf.forest, rf_device.forest):
+        raise AssertionError("resumed device-engine RF != uninterrupted")
+    cut = higgs_like(CKPT_ROWS)
+    for name, fit, stop, hparams in (
+            ("gbt_batched", train_default, CKPT_TREES // 2,
+             dict(num_trees=CKPT_TREES)),
+            ("cart", train_cart, 1, {})):
+        clean = fit(cut, device, **hparams)
+        histogram.LAUNCHES = 0           # the stopped run starts here
+        resumed, out[name] = stop_and_resume(
+            fit, cut, device, scratch, name, stop, 5, **hparams)
+        out[name]["launches"] = histogram.LAUNCHES   # ... resume ends here
+        if out[name]["launches"] <= 0:
+            raise AssertionError(f"{name}: no histogram kernel launch")
+        if not same_forest(resumed.forest, clean.forest):
+            raise AssertionError(f"resumed {name} != uninterrupted")
+        out[name]["rows"] = CKPT_ROWS
+    for name in ("gbt_device", "rf_device", "gbt_batched", "cart"):
+        out[name]["equal_to_uninterrupted"] = True
     return out
 
 
@@ -1761,9 +1975,10 @@ def main() -> int:
                                   kernels=HIST_KERNELS,
                                   n_trees=RF_PROFILE_TREES,
                                   tree_span="rf/block"))
-    _, rf_device_run = run_rf_device(data, device, rf)
+    rf_device, rf_device_run = run_rf_device(data, device, rf)
     emit(phase="train_rf_device", **rf_device_run)
-    emit(phase="train_cart", **run_cart(data, device, backend))
+    cart, cart_run = run_cart(data, device, backend)
+    emit(phase="train_cart", **cart_run)
     emit(phase="train_wide", **run_wide(device, backend))
 
     forest_infer.LAUNCHES = 0            # serving the trained forest
@@ -1777,6 +1992,16 @@ def main() -> int:
          trees=rf.forest.n_trees, max_nodes=rf.forest.max_nodes,
          depth=rf.forest.depth,
          variants=check_variants(rf.forest, X_rf, device))
+
+    scratch = scratch_dir()
+    try:
+        emit(phase="model_io", card=card, **check_model_io(
+            {"gbt": trained, "rf": rf, "cart": cart}, valid, device,
+            scratch))
+        emit(phase="checkpoint", card=card, **check_checkpoint(
+            data, trained, rf_device, device, scratch))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
 
     # the single-tree kernel's path: forest_predict(impl="single") on the
     # trained forest and on the default GBT

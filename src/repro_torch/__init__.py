@@ -9,15 +9,21 @@ histograms or split searches in hand-written CUDA kernels
 ``jax`` or ``repro``; models trained by the JAX package arrive as plain
 arrays through ``repro_torch.convert``.
 
+Models save to and load from a directory of plain data (``Model.save``,
+``Model.load``), and ``checkpoint=`` on every learner gives interruption-safe
+training with bit-identical resume (``resume_training``).
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 """
 
 
 def __getattr__(name):
-    # the learners, lazily from repro_torch.core
+    # the learners, the model surface and checkpointed training, lazily
+    # from repro_torch.core
     if name in ("GradientBoostedTreesLearner", "RandomForestLearner",
-                "CartLearner"):
+                "CartLearner", "Model", "get_learner", "list_learners",
+                "make_learner", "CheckpointPolicy", "resume_training"):
         from repro_torch import core
         return getattr(core, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

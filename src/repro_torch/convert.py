@@ -5,7 +5,9 @@ The port never sees a ``repro`` object and never unpickles ``model.pkl``
 
   * its ``Forest`` fields as numpy arrays (``feature``, ``threshold``,
     ``cat_mask``, ``left_child``, ``leaf_value``, ``n_nodes``, ``depth``,
-    ``tree_class``, ``init_pred``, ``out_dim``);
+    ``tree_class``, ``init_pred``, ``out_dim``, and the training-side
+    ``split_bin`` and ``split_gain`` when given: the gains are what the
+    SUM_SCORE importance sums);
   * the dataspec dict that ``repro.core.dataspec.spec_to_dict`` writes (the
     same as ``dataspec.json`` in a saved model directory);
   * the feature list, task, classes and, for a GBT, the loss name.
@@ -53,8 +55,11 @@ def forest_from_arrays(arrays: dict, feature_names: list[str]) -> Forest:
     leaf_value = np.asarray(arrays["leaf_value"], np.float32)
     cat_mask = np.asarray(arrays["cat_mask"], np.uint32)
     shapes = {"threshold": (T, M), "left_child": (T, M),
-              "cat_mask": (T, M, MASK_WORDS), "n_nodes": (T,)}
+              "cat_mask": (T, M, MASK_WORDS), "n_nodes": (T,),
+              "split_bin": (T, M), "split_gain": (T, M)}
     for name, want in shapes.items():
+        if arrays.get(name) is None:
+            continue                       # split_bin, split_gain: optional
         got = np.shape(arrays[name])
         if got != want:
             raise YdfError(f"{name} must have shape {want}, got {got}")
@@ -64,6 +69,8 @@ def forest_from_arrays(arrays: dict, feature_names: list[str]) -> Forest:
     out_dim = int(arrays.get("out_dim", leaf_value.shape[-1]))
     tree_class = arrays.get("tree_class")
     init_pred = arrays.get("init_pred")
+    split_bin = arrays.get("split_bin")
+    split_gain = arrays.get("split_gain")
     return Forest(
         feature=feature,
         threshold=np.asarray(arrays["threshold"], np.float32),
@@ -77,7 +84,11 @@ def forest_from_arrays(arrays: dict, feature_names: list[str]) -> Forest:
                     else np.asarray(tree_class, np.int32)),
         init_pred=(np.zeros(out_dim, np.float32) if init_pred is None
                    else np.asarray(init_pred, np.float32)),
-        feature_names=list(feature_names))
+        feature_names=list(feature_names),
+        split_bin=(None if split_bin is None
+                   else np.asarray(split_bin, np.uint16)),
+        split_gain=(None if split_gain is None
+                    else np.asarray(split_gain, np.float32)))
 
 
 def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,

@@ -6,14 +6,19 @@ The tree grows through the reference's engines (core/grower.py) on the
 learner's ``device`` (None is cuda): by default the batched engine, whose
 every level histogram is built by the CUDA histogram kernel on the card and
 by numpy on the CPU. Pruning is host numpy over ``predict_raw``, as in the
-reference. A non-None ``checkpoint`` raises (not ported yet).
+reference. ``checkpoint=`` has one interior boundary, the grown but
+unpruned tree: pruning is deterministic given the forest and the
+seed-derived validation split, so a resume from that stage re-prunes to
+the same tree.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
 from repro_torch.core.api import Learner, Task, register_learner
-from repro_torch.core.gbt import _check_checkpoint, _engine_logs
+from repro_torch.core.gbt import _engine_logs
 from repro_torch.core.grower import GrowthParams, grow_tree, resolve_engine
 from repro_torch.core.hparams import CartHparams
 from repro_torch.core.models import (
@@ -25,6 +30,11 @@ from repro_torch.core.splitters import SplitterParams
 from repro_torch.core.tree import Forest, empty_forest, predict_raw
 from repro_torch.obs import trace
 from repro_torch.obs.logs import build_training_logs
+from repro_torch.train.checkpoint import (
+    forest_payload,
+    open_session,
+    restore_forest,
+)
 
 
 @register_learner("CART")
@@ -34,7 +44,7 @@ class CartLearner(Learner):
 
     def train(self, dataset, valid=None, checkpoint=None) -> CartModel:
         from repro_torch.core.engines import resolve_device
-        _check_checkpoint(checkpoint)
+        from repro_torch.core.rf import training_data_fingerprint
         device = resolve_device(self.device)
         hp: CartHparams = self.hparams
         rng = np.random.default_rng(self.seed)
@@ -68,14 +78,39 @@ class CartLearner(Learner):
         engine_used, fallback = resolve_engine(gp, td.binned)
         forest = empty_forest(1, hp.max_num_nodes, out_dim,
                               feature_names=td.features)
-        w = np.zeros(N)
-        w[tr_idx] = 1.0
-        with trace.span("cart/grow"):
-            grow_tree(forest, 0, td.binned, td.X_raw, base * w[:, None], w > 0,
-                      leaf_fn, gp, rng)
-        if len(va_idx):
-            with trace.span("cart/prune", valid_rows=len(va_idx)):
-                _prune(forest, td.X_raw[va_idx], td.y[va_idx], self.task)
+
+        # -- checkpoint seam: one interior boundary, grown but unpruned
+        sess = open_session(checkpoint, self.train_config(),
+                            training_data_fingerprint(td.X_raw, td.y),
+                            device.type)
+        state = sess.resume() if sess is not None else None
+        grown = pruned = interrupted = False
+        if state is not None:
+            restore_forest(forest, state["forest"])
+            grown, pruned = True, bool(state["done"])
+
+        def _payload(complete: bool) -> dict:
+            return {"kind": "cart", "trees_done": 1, "done": bool(complete),
+                    "forest": forest_payload(forest, 1)}
+
+        with (sess if sess is not None else contextlib.nullcontext()):
+            if not grown:
+                w = np.zeros(N)
+                w[tr_idx] = 1.0
+                with trace.span("cart/grow"):
+                    grow_tree(forest, 0, td.binned, td.X_raw,
+                              base * w[:, None], w > 0, leaf_fn, gp, rng)
+                if sess is not None and sess.should_stop():
+                    # servable unpruned tree now; pruning happens on resume
+                    interrupted = True
+                    sess.save(1, _payload(False), done=False, force=True)
+            if not pruned and not interrupted:
+                if len(va_idx):
+                    with trace.span("cart/prune", valid_rows=len(va_idx)):
+                        _prune(forest, td.X_raw[va_idx], td.y[va_idx],
+                               self.task)
+                if sess is not None:
+                    sess.save(1, _payload(True), done=True, force=True)
 
         model = CartModel(winner_take_all=False, forest=forest, spec=td.ds.spec,
                           features=td.features, label=self.label, task=self.task,
@@ -83,6 +118,8 @@ class CartLearner(Learner):
         model.training_logs = build_training_logs(
             learner="cart", num_trees=1,
             growth_engine=engine_used, engine_fallback=fallback,
+            resilience=sess.events if sess is not None else None,
+            interrupted=interrupted,
             extra={"device": str(device),
                    **_engine_logs(gp, engine_used, td.binned, device)})
         return model

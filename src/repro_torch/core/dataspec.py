@@ -84,6 +84,30 @@ class DataSpec:
         drop = {label, *exclude}
         return [c for c in self.columns if c not in drop]
 
+    # show_dataspec analogue (§4.1 artefacts)
+    def report(self) -> str:
+        by_sem: dict[str, list[Column]] = {}
+        for c in self.columns.values():
+            by_sem.setdefault(c.semantic.value, []).append(c)
+        lines = [f"Number of records: {self.n_rows}",
+                 f"Number of columns: {len(self.columns)}", ""]
+        for sem, cols in sorted(by_sem.items()):
+            pct = 100.0 * len(cols) / max(1, len(self.columns))
+            lines.append(f"{sem}: {len(cols)} ({pct:.0f}%)")
+            for c in sorted(cols, key=lambda c: c.name):
+                if c.semantic == Semantic.NUMERICAL:
+                    lines.append(
+                        f'  "{c.name}" NUMERICAL mean:{c.mean:g} min:{c.min:g} '
+                        f"max:{c.max:g} sd:{c.std:g} nas:{c.n_missing}")
+                else:
+                    top = max(c.counts, key=c.counts.get) if c.counts else "-"
+                    lines.append(
+                        f'  "{c.name}" {c.semantic.value} has-dict '
+                        f"vocab-size:{c.vocab_size} most-frequent:{top!r} "
+                        f"nas:{c.n_missing}"
+                        + (" manually-defined" if c.manually_defined else ""))
+        return "\n".join(lines)
+
 
 def spec_to_dict(spec: DataSpec) -> dict:
     """The stable JSON form of a DataSpec (``dataspec.json``)."""
@@ -262,6 +286,14 @@ class VerticalDataset:
             return self.numerical[name]
         return self.categorical[name]
 
+    def subset(self, idx: np.ndarray) -> "VerticalDataset":
+        return VerticalDataset(
+            spec=self.spec,
+            numerical={k: v[idx] for k, v in self.numerical.items()},
+            categorical={k: v[idx] for k, v in self.categorical.items()},
+            n_rows=len(idx),
+        )
+
 
 def encode_dataset(data: Mapping[str, Any], spec: DataSpec) -> VerticalDataset:
     numerical: dict[str, np.ndarray] = {}
@@ -312,6 +344,31 @@ def check_classification_label(col: Column, task: Task) -> None:
             f'The classification label column "{col.name}" has {n_classes} '
             "unique values and looks like a regression column. Solutions: (1) "
             "use task=REGRESSION, or (2) reduce the label cardinality.")
+
+
+def label_values(model, dataset) -> np.ndarray:
+    """0-based class indices (classification) or float targets (regression),
+    aligned with ``Model.predict`` output columns."""
+    if isinstance(dataset, VerticalDataset):
+        y = dataset.column(model.label)
+        if model.task == Task.CLASSIFICATION:
+            if (y <= 0).any():
+                raise YdfError(
+                    f'Label column "{model.label}" contains missing or '
+                    "out-of-dictionary values; evaluation requires labeled "
+                    "examples. Solution: filter unlabeled rows first.")
+            return (y - 1).astype(np.int32)  # vocab[0] is OOD
+        return y.astype(np.float32)
+    raw = np.asarray(dataset[model.label], dtype=object).ravel()
+    if model.task == Task.CLASSIFICATION:
+        lookup = {str(v): i for i, v in enumerate(model.classes)}
+        try:
+            return np.array([lookup[str(v)] for v in raw], np.int32)
+        except KeyError as e:
+            raise YdfError(
+                f"Label value {e.args[0]!r} was not seen during training. "
+                f"Training classes: {model.classes}.")
+    return np.array([float(v) for v in raw], np.float32)
 
 
 # ------------------------------------------- compiled row encoding (§5.1)

@@ -40,6 +40,18 @@ class Evaluation:
                 "confusion": (None if self.confusion is None
                               else self.confusion.tolist())}
 
+    @staticmethod
+    def from_dict(d: dict) -> "Evaluation":
+        """The inverse of ``to_dict`` (a saved model's self-evaluation):
+        intervals come back as tuples, the confusion matrix as int64."""
+        return Evaluation(
+            task=Task(d["task"]), n_examples=int(d["n_examples"]),
+            metrics={k: (tuple(v) if isinstance(v, list) else v)
+                     for k, v in d["metrics"].items()},
+            confusion=(None if d["confusion"] is None
+                       else np.asarray(d["confusion"], np.int64)),
+            classes=d["classes"], source=d["source"])
+
     def report(self) -> str:
         L = [f"Evaluation ({self.source}):",
              f"Number of predictions: {self.n_examples}",

@@ -12,12 +12,18 @@ boosting loop around them is host numpy, as in the reference: gradients,
 leaf values, the validation predictions and the loss values. The trained
 ``GradientBoostedTreesModel`` serves through the port's engines.
 
+``checkpoint=`` (a directory or a ``train.checkpoint.CheckpointPolicy``)
+snapshots the boosting state at tree boundaries, as the reference does:
+the trees so far, the cached train and validation predictions, the
+early-stopping bookkeeping and the host RNG's state. A resumed run on the
+same device type grows the same forest bit for bit.
+
 Not ported yet: sparse-oblique splits (``split_axis="SPARSE_OBLIQUE"`` and
-the benchmark_rank1 template raise), the checkpoint seam (a non-None
-``checkpoint`` raises) and the ranking task.
+the benchmark_rank1 template raise) and the ranking task.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -41,6 +47,11 @@ from repro_torch.core.splitters import SplitterParams
 from repro_torch.core.tree import Forest, empty_forest, predict_raw
 from repro_torch.obs import trace
 from repro_torch.obs.logs import build_training_logs
+from repro_torch.train.checkpoint import (
+    forest_payload,
+    open_session,
+    restore_forest,
+)
 
 
 @register_learner("GRADIENT_BOOSTED_TREES")
@@ -52,7 +63,7 @@ class GradientBoostedTreesLearner(Learner):
     def train(self, dataset, valid=None, checkpoint=None
               ) -> GradientBoostedTreesModel:
         from repro_torch.core.engines import resolve_device
-        _check_checkpoint(checkpoint)
+        from repro_torch.core.rf import training_data_fingerprint
         if self.task not in (Task.CLASSIFICATION, Task.REGRESSION):
             raise YdfError(
                 f"GBT training for task={self.task.value} is not ported yet; "
@@ -119,47 +130,94 @@ class GradientBoostedTreesLearner(Learner):
                   if yv is not None else None)
         best_loss, best_t, patience = np.inf, 0, hp.early_stopping_patience
         train_losses, valid_losses = [], []
-        trees_done = 0
-        for it in range(hp.num_trees):
-            with trace.span("gbt/grad_hess", iteration=it):
-                g, h = loss.grad_hess(pred, y, w)
-            bag = w if hp.subsample >= 1.0 else w * (rng.random(N) < hp.subsample)
-            for k in range(K):
-                t = it * K + k
-                stats = np.stack([
-                    g[:, k] * bag,
-                    (h[:, k] if hp.use_hessian_gain else np.ones(N)) * bag,
-                    h[:, k] * bag,
-                    bag,
-                ], axis=1).astype(np.float64)
-                with trace.span("gbt/tree", tree=t, iteration=it):
-                    node_of = grow_tree(forest, t, sub_td.binned,
-                                        sub_td.X_raw, stats, bag > 0,
-                                        leaf_fn, gp, rng)
-                vals = forest.leaf_value[t, np.maximum(node_of, 0), 0]
-                upd = np.where(node_of >= 0, vals, 0.0)
-                if hp.subsample < 1.0:  # OOB examples still move (predict path)
-                    oob = (bag <= 0)
-                    if oob.any():
-                        tr = predict_raw(_one_tree(forest, t), sub_td.X_raw[oob])
-                        upd = upd.copy()
-                        upd[oob] = tr[:, 0, 0]
-                pred[:, k] += upd
-                if pred_v is not None:
-                    pv = predict_raw(_one_tree(forest, t), Xv)[:, 0, 0]
-                    pred_v[:, k] += pv
-            trees_done = it + 1
-            train_losses.append(loss.value(pred, y, w))
-            if pred_v is not None:
-                vl = loss.value(pred_v, yv, wv)
-                valid_losses.append(vl)
-                if vl < best_loss - 1e-9:
-                    best_loss, best_t = vl, it + 1
-                elif hp.early_stopping == "LOSS_INCREASE" and it + 1 - best_t >= patience:
+
+        # -- checkpoint seam: the bit-identical-resume closure is (forest
+        # slices, pred, pred_v, early-stop bookkeeping,
+        # rng.bit_generator.state) snapshotted at tree boundaries. The seam
+        # sits OUTSIDE grow_tree, so every engine checkpoints the same way;
+        # a resumed run builds its engine state afresh.
+        sess = open_session(checkpoint, self.train_config(),
+                            training_data_fingerprint(td.X_raw, td.y),
+                            device.type)
+        trees_done, stopped, interrupted = 0, False, False
+
+        def _payload(complete: bool) -> dict:
+            return {"kind": "gbt", "trees_done": trees_done,
+                    "done": bool(complete),
+                    "forest": forest_payload(forest, trees_done * K),
+                    "pred": np.copy(pred),
+                    "pred_v": None if pred_v is None else np.copy(pred_v),
+                    "rng_state": rng.bit_generator.state,
+                    "best_loss": float(best_loss), "best_t": int(best_t),
+                    "train_losses": list(train_losses),
+                    "valid_losses": list(valid_losses)}
+
+        if sess is not None:
+            state = sess.resume()
+            if state is not None:
+                trees_done = int(state["trees_done"])
+                stopped = bool(state["done"])
+                restore_forest(forest, state["forest"])
+                pred[:] = state["pred"]
+                if pred_v is not None and state["pred_v"] is not None:
+                    pred_v[:] = state["pred_v"]
+                rng.bit_generator.state = state["rng_state"]
+                best_loss = state["best_loss"]
+                best_t = state["best_t"]
+                train_losses = list(state["train_losses"])
+                valid_losses = list(state["valid_losses"])
+
+        with (sess if sess is not None else contextlib.nullcontext()):
+            for it in range(trees_done, hp.num_trees):
+                if stopped:
                     break
+                with trace.span("gbt/grad_hess", iteration=it):
+                    g, h = loss.grad_hess(pred, y, w)
+                bag = w if hp.subsample >= 1.0 else w * (rng.random(N) < hp.subsample)
+                for k in range(K):
+                    t = it * K + k
+                    stats = np.stack([
+                        g[:, k] * bag,
+                        (h[:, k] if hp.use_hessian_gain else np.ones(N)) * bag,
+                        h[:, k] * bag,
+                        bag,
+                    ], axis=1).astype(np.float64)
+                    with trace.span("gbt/tree", tree=t, iteration=it):
+                        node_of = grow_tree(forest, t, sub_td.binned,
+                                            sub_td.X_raw, stats, bag > 0,
+                                            leaf_fn, gp, rng)
+                    vals = forest.leaf_value[t, np.maximum(node_of, 0), 0]
+                    upd = np.where(node_of >= 0, vals, 0.0)
+                    if hp.subsample < 1.0:  # OOB examples still move (predict path)
+                        oob = (bag <= 0)
+                        if oob.any():
+                            tr = predict_raw(_one_tree(forest, t), sub_td.X_raw[oob])
+                            upd = upd.copy()
+                            upd[oob] = tr[:, 0, 0]
+                    pred[:, k] += upd
+                    if pred_v is not None:
+                        pv = predict_raw(_one_tree(forest, t), Xv)[:, 0, 0]
+                        pred_v[:, k] += pv
+                trees_done = it + 1
+                train_losses.append(loss.value(pred, y, w))
+                if pred_v is not None:
+                    vl = loss.value(pred_v, yv, wv)
+                    valid_losses.append(vl)
+                    if vl < best_loss - 1e-9:
+                        best_loss, best_t = vl, it + 1
+                    elif hp.early_stopping == "LOSS_INCREASE" and it + 1 - best_t >= patience:
+                        stopped = True
+                if sess is not None:
+                    complete = stopped or trees_done == hp.num_trees
+                    if not complete and sess.should_stop():
+                        interrupted = True
+                    sess.save(trees_done, _payload(complete), done=complete,
+                              force=complete or interrupted)
+                    if interrupted:
+                        break
 
         n_keep = (best_t if pred_v is not None and hp.early_stopping != "NONE"
-                  else trees_done) * K
+                  and not interrupted else trees_done) * K
         forest = forest.truncated(max(min(n_keep, trees_done * K), K))
         self_eval = None
         if pred_v is not None and len(yv):
@@ -174,18 +232,11 @@ class GradientBoostedTreesLearner(Learner):
         model.training_logs = build_training_logs(
             learner="gbt", num_trees=forest.n_trees // K,
             growth_engine=engine_used, engine_fallback=engine_fallback,
+            resilience=sess.events if sess is not None else None,
+            interrupted=interrupted,
             extra={"train_loss": train_losses, "valid_loss": valid_losses,
                    "device": str(device), **impl})
         return model
-
-
-def _check_checkpoint(checkpoint) -> None:
-    """The checkpoint seam is not ported yet (ROADMAP A5a): every learner
-    of the port refuses a checkpoint instead of ignoring it."""
-    if checkpoint is not None:
-        raise YdfError(
-            "Checkpointed training (checkpoint=...) is not ported yet. "
-            "Solution: train without checkpoint=.")
 
 
 def _engine_logs(gp: GrowthParams, engine_used: str, binned,

@@ -4,18 +4,27 @@
 A ``DecisionForestModel`` holds a Forest SoA, the training DataSpec and
 feature list, and routes ``predict`` through a compiled predictor
 (core/engines.py). Models come from the port's learners (core/gbt.py,
-core/rf.py, core/cart.py) or from the JAX package through
-``repro_torch.convert``.
+core/rf.py, core/cart.py), from a saved model directory (``Model.load``)
+or from the JAX package through ``repro_torch.convert``.
 ``prepare_train_data`` turns a raw dataset into the binned codes, raw
 matrix and labels a learner trains on (host numpy, as in the reference).
+
+A saved decision forest is plain data: ``forest.npz`` holds every Forest
+array that is not None, and ``model.json`` the rest (task, label,
+features, classes, the GBT loss name, ``winner_take_all``, ``bag_info``,
+``training_logs``, the self-evaluation and the Forest's scalars). Loading
+builds the model through ``convert.model_from_arrays``, the constructors
+that carry a JAX-trained model across.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
-from repro_torch.core.api import Task, YdfError
+from repro_torch.core.api import Model, Task, YdfError
 from repro_torch.core.binning import BinnedFeatures, bin_features
 from repro_torch.core.dataspec import (
     DataSpec,
@@ -134,7 +143,7 @@ def extract_validation(n: int, ratio: float, seed: int) -> tuple[np.ndarray, np.
 # ---------------------------------------------------------------- model
 
 
-class DecisionForestModel:
+class DecisionForestModel(Model):
     def __init__(self, *, forest: Forest, spec: DataSpec, features: list[str],
                  task: Task, classes: list[str] | None,
                  label: str | None = None,
@@ -149,13 +158,24 @@ class DecisionForestModel:
         self.training_logs: dict | None = None
         self._predictors: dict = {}
 
+    # -------- engines + compiled predictor (§3.7; DESIGN.md §5.1)
+    def compile(self, engine: str | None = None, device=None):
+        """(Re)compile the serving stack for (engine, device): encode tables
+        + engine closure + output head. Returns the selected Engine; the
+        whole CompiledPredictor is ``predictor(engine, device)``.
+        ``device=None`` is cuda."""
+        from repro_torch.core.engines import compile_predictor, resolve_device
+        key = (engine, str(resolve_device(device)))
+        self._predictors[key] = compile_predictor(self, engine, key[1])
+        return self._predictors[key].engine
+
     def predictor(self, engine: str | None = None, device=None):
         """The CompiledPredictor for (engine, device), compiled on first use
         and reused by every later ``predict``. ``device=None`` is cuda."""
-        from repro_torch.core.engines import compile_predictor, resolve_device
+        from repro_torch.core.engines import resolve_device
         key = (engine, str(resolve_device(device)))
         if key not in self._predictors:
-            self._predictors[key] = compile_predictor(self, engine, key[1])
+            self.compile(engine, device)
         return self._predictors[key]
 
     def predict(self, dataset, *, engine: str | None = None,
@@ -164,10 +184,136 @@ class DecisionForestModel:
         probabilities; regression: (N,)."""
         return self.predictor(engine, device).predict(dataset)
 
+    def _scores(self, dataset, engine=None, device=None) -> np.ndarray:
+        """(N, T, leaf_dim) per-tree outputs via the compiled predictor."""
+        p = self.predictor(engine, device)
+        return np.asarray(p.per_tree(p.encode(dataset)))
+
     def _compile_finalize(self):
         """Self-contained output head: it captures the fields it needs, not
         the model, so the predictor does not hold the model alive."""
         raise NotImplementedError
+
+    # -------- typed tree API (ROADMAP A6)
+    def inspect(self):
+        raise YdfError(
+            "The typed tree API (py_tree.ModelInspector) is not ported yet "
+            "(ROADMAP A6). The Forest SoA is model.forest.")
+
+    def summary(self, verbose: int | bool = False) -> str:
+        if verbose:
+            raise YdfError(
+                "summary(verbose=...) renders trees through "
+                "py_tree.ModelInspector, which is not ported yet (ROADMAP "
+                "A6). Solution: call summary() without verbose.")
+        c = self.forest.node_counts()
+        lines = [f"Type: {type(self).__name__}",
+                 f"Task: {self.task.value}", f'Label: "{self.label}"',
+                 f"Input Features ({len(self.features)}): {self.features}",
+                 f"Number of trees: {c['n_trees']}",
+                 f"Total number of nodes: {c['total_nodes']}",
+                 f"Max depth: {self.forest.depth}"]
+        vi = self.variable_importances()
+        for kind, table in vi.items():
+            top = sorted(table.items(), key=lambda kv: -kv[1])[:5]
+            lines.append(f"Variable Importance {kind}: "
+                         + ", ".join(f'"{k}" {v:g}' for k, v in top))
+        if self.self_evaluation is not None:
+            lines.append("Self-evaluation: "
+                         + f"{self.self_evaluation.source}: "
+                         + ", ".join(f"{k}={v:.4g}" for k, v in
+                                     self.self_evaluation.metrics.items()
+                                     if isinstance(v, float)))
+        logs = getattr(self, "training_logs", None)
+        if isinstance(logs, dict):
+            from repro_torch.obs.logs import summarize_training_logs
+            lines.extend(summarize_training_logs(logs))
+            oob = logs.get("oob")
+            if oob:
+                lines.append(
+                    f"Out-of-bag coverage: {oob['coverage']:.1%} of training "
+                    f"examples "
+                    f"({oob['mean_trees_per_example']:.1f} trees/example)")
+        return "\n".join(lines)
+
+    def variable_importances(self) -> dict[str, dict[str, float]]:
+        return self.forest.variable_importances()
+
+    # -------- plain-data save (Model.save writes the rest)
+    def _write_state(self, path: str) -> None:
+        f = self.forest
+        arrays = {k: getattr(f, k) for k in _FOREST_ARRAYS
+                  if getattr(f, k) is not None}
+        np.savez(os.path.join(path, "forest.npz"), **arrays)
+        ev = self.self_evaluation
+        fields = {
+            "task": self.task.value, "label": self.label,
+            "features": self.features, "classes": self.classes,
+            "forest": {"depth": int(f.depth), "out_dim": int(f.out_dim)},
+            "loss": getattr(getattr(self, "loss", None), "name", None),
+            "winner_take_all": getattr(self, "winner_take_all", None),
+            "bag_info": getattr(self, "bag_info", None),
+            "training_logs": self.training_logs,
+            "self_evaluation": None if ev is None else ev.to_dict(),
+        }
+        with open(os.path.join(path, "model.json"), "w") as fh:
+            json.dump(fields, fh, indent=1)
+
+
+# the Forest arrays a saved model carries (those that are not None)
+_FOREST_ARRAYS = ("feature", "threshold", "cat_mask", "left_child",
+                  "leaf_value", "n_nodes", "tree_class", "init_pred",
+                  "split_bin", "split_gain")
+_KIND_OF = {"GradientBoostedTreesModel": "gbt", "RandomForestModel": "rf",
+            "CartModel": "cart"}
+
+
+def load_forest_model(path: str, meta: dict) -> DecisionForestModel:
+    """The decision forest saved at ``path`` (``Model.load`` has read and
+    checked ``meta``, its header), built through
+    ``convert.model_from_arrays``. Reads no pickle."""
+    from repro_torch.convert import model_from_arrays
+    if not os.path.exists(os.path.join(path, "forest.npz")):
+        if os.path.exists(os.path.join(path, "model.pkl")):
+            raise YdfError(
+                f"Model directory {path!r} was saved by the JAX package "
+                "(it holds 'model.pkl', a pickle); this package reads no "
+                "pickle. Solution: load it with the JAX package and carry "
+                "its Forest fields and dataspec across with "
+                "repro_torch.convert.model_from_arrays.")
+        raise YdfError(
+            f"Model directory {path!r} has a header but no 'forest.npz'. "
+            "The save was interrupted or the file was removed. Solution: "
+            "re-save the model with model.save(path).")
+    kind = _KIND_OF.get(meta.get("class"))
+    if kind is None:
+        raise YdfError(
+            f"Model directory {path!r} holds a {meta.get('class')!r}; this "
+            f"package loads {sorted(_KIND_OF)}.")
+    try:
+        with open(os.path.join(path, "model.json")) as fh:
+            fields = json.load(fh)
+        with open(os.path.join(path, "dataspec.json")) as fh:
+            spec = json.load(fh)
+    except (OSError, json.JSONDecodeError) as e:
+        raise YdfError(
+            f"Model directory {path!r} is incomplete or corrupt ({e}). "
+            "Solution: re-save the model with model.save(path).") from None
+    with np.load(os.path.join(path, "forest.npz"), allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    arrays.update(depth=fields["forest"]["depth"],
+                  out_dim=fields["forest"]["out_dim"])
+    model = model_from_arrays(
+        kind, arrays, spec, fields["features"], task=fields["task"],
+        classes=fields["classes"], loss=fields["loss"],
+        winner_take_all=bool(fields["winner_take_all"]))
+    model.label = fields["label"]
+    model.training_logs = fields["training_logs"]
+    if fields["self_evaluation"] is not None:
+        model.self_evaluation = Evaluation.from_dict(fields["self_evaluation"])
+    if kind != "gbt":
+        model.bag_info = fields["bag_info"]
+    return model
 
 
 class GradientBoostedTreesModel(DecisionForestModel):
@@ -177,6 +323,11 @@ class GradientBoostedTreesModel(DecisionForestModel):
 
     def _compile_finalize(self):
         return _GbtFinalize(self.loss, self.forest)
+
+    def predict_scores(self, dataset, *, engine: str | None = None,
+                       device=None) -> np.ndarray:
+        """(N, out_dim) raw boosting scores (before the activation)."""
+        return aggregate_gbt(self._scores(dataset, engine, device), self.forest)
 
 
 class RandomForestModel(DecisionForestModel):

@@ -12,19 +12,26 @@ through the device engine's level step (the fused split-search kernel on
 numerical data). Bootstrap draws, leaf values and the out-of-bag
 evaluation are host numpy, as in the reference.
 
+``checkpoint=`` checkpoints at ``tree_parallelism`` block boundaries only,
+on every engine and device (on the card the batched engine grows a block's
+trees one by one, and the block stays the unit), so a resumed
+``range(trees_done, ..., block)`` realigns with the uninterrupted run's
+blocks. The per-tree rng streams are re-derived from (seed, tree), not
+stored.
+
 Not ported yet: sparse-oblique splits (``split_axis="SPARSE_OBLIQUE"`` and
-the benchmark_rank1 template raise) and the checkpoint seam (a non-None
-``checkpoint`` raises).
+the benchmark_rank1 template raise).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 
 import numpy as np
 
 from repro_torch.core.api import Learner, Task, register_learner
 from repro_torch.core.evaluation import evaluate_predictions
-from repro_torch.core.gbt import _check_checkpoint, _engine_logs, _one_tree
+from repro_torch.core.gbt import _engine_logs, _one_tree
 from repro_torch.core.grower import GrowthParams, grow_trees, resolve_engine
 from repro_torch.core.hparams import RFHparams
 from repro_torch.core.models import RandomForestModel, prepare_train_data
@@ -32,6 +39,11 @@ from repro_torch.core.splitters import SplitterParams
 from repro_torch.core.tree import empty_forest, predict_raw
 from repro_torch.obs import trace
 from repro_torch.obs.logs import build_training_logs
+from repro_torch.train.checkpoint import (
+    forest_payload,
+    open_session,
+    restore_forest,
+)
 
 
 def training_data_fingerprint(X: np.ndarray, y: np.ndarray) -> str:
@@ -54,7 +66,6 @@ class RandomForestLearner(Learner):
 
     def train(self, dataset, valid=None, checkpoint=None) -> RandomForestModel:
         from repro_torch.core.engines import resolve_device
-        _check_checkpoint(checkpoint)
         device = resolve_device(self.device)
         hp: RFHparams = self.hparams
         td = prepare_train_data(self, dataset, max_bins=hp.max_bins)
@@ -108,33 +119,67 @@ class RandomForestLearner(Learner):
         oob_cnt = np.zeros(N, np.int64)
         tree_rng = [np.random.default_rng((self.seed & 0xFFFFFFFF, 104729, t))
                     for t in range(hp.num_trees)]
-        for b0 in range(0, hp.num_trees, block):
-            ts = list(range(b0, min(b0 + block, hp.num_trees)))
-            counts_b, stats_b = [], []
-            for t in ts:
-                if hp.bootstrap:
-                    counts = tree_rng[t].multinomial(
-                        N, np.full(N, 1.0 / N)).astype(np.float64)
-                else:
-                    counts = np.ones(N)
-                counts_b.append(counts)
-                stats_b.append(base_stats * counts[:, None])
-            with trace.span("rf/block", first_tree=ts[0], trees=len(ts)):
-                grow_trees(forest, ts, td.binned, td.X_raw, stats_b,
-                           [c > 0 for c in counts_b], leaf_fn, gp,
-                           [tree_rng[t] for t in ts], block=block)
-            if hp.compute_oob and hp.bootstrap:
-                for bi, t in enumerate(ts):
-                    oob = counts_b[bi] == 0
-                    if not oob.any():
-                        continue
-                    pr = predict_raw(_one_tree(forest, t), td.X_raw[oob])[:, 0]
-                    if hp.winner_take_all and out_dim > 1:
-                        vote = np.zeros_like(pr)
-                        vote[np.arange(len(pr)), pr.argmax(1)] = 1.0
-                        pr = vote
-                    oob_sum[oob] += pr
-                    oob_cnt[oob] += 1
+        # -- checkpoint seam: at block boundaries only (see the module
+        # docstring); no generator state is stored
+        sess = open_session(checkpoint, self.train_config(),
+                            training_data_fingerprint(td.X_raw, td.y),
+                            device.type)
+        trees_done, interrupted = 0, False
+
+        def _payload(complete: bool) -> dict:
+            return {"kind": "rf", "trees_done": trees_done,
+                    "done": bool(complete),
+                    "forest": forest_payload(forest, trees_done),
+                    "oob_sum": np.copy(oob_sum), "oob_cnt": np.copy(oob_cnt)}
+
+        if sess is not None:
+            state = sess.resume()
+            if state is not None:
+                trees_done = int(state["trees_done"])
+                restore_forest(forest, state["forest"])
+                oob_sum[:] = state["oob_sum"]
+                oob_cnt[:] = state["oob_cnt"]
+
+        with (sess if sess is not None else contextlib.nullcontext()):
+            for b0 in range(trees_done, hp.num_trees, block):
+                ts = list(range(b0, min(b0 + block, hp.num_trees)))
+                counts_b, stats_b = [], []
+                for t in ts:
+                    if hp.bootstrap:
+                        counts = tree_rng[t].multinomial(
+                            N, np.full(N, 1.0 / N)).astype(np.float64)
+                    else:
+                        counts = np.ones(N)
+                    counts_b.append(counts)
+                    stats_b.append(base_stats * counts[:, None])
+                with trace.span("rf/block", first_tree=ts[0], trees=len(ts)):
+                    grow_trees(forest, ts, td.binned, td.X_raw, stats_b,
+                               [c > 0 for c in counts_b], leaf_fn, gp,
+                               [tree_rng[t] for t in ts], block=block)
+                if hp.compute_oob and hp.bootstrap:
+                    for bi, t in enumerate(ts):
+                        oob = counts_b[bi] == 0
+                        if not oob.any():
+                            continue
+                        pr = predict_raw(_one_tree(forest, t), td.X_raw[oob])[:, 0]
+                        if hp.winner_take_all and out_dim > 1:
+                            vote = np.zeros_like(pr)
+                            vote[np.arange(len(pr)), pr.argmax(1)] = 1.0
+                            pr = vote
+                        oob_sum[oob] += pr
+                        oob_cnt[oob] += 1
+                trees_done = ts[-1] + 1
+                if sess is not None:
+                    complete = trees_done == hp.num_trees
+                    if not complete and sess.should_stop():
+                        interrupted = True
+                    sess.save(trees_done, _payload(complete), done=complete,
+                              force=complete or interrupted)
+                    if interrupted:
+                        break
+        if interrupted:
+            # servable truncated model: only fully-grown trees survive
+            forest = forest.truncated(max(trees_done, 1))
 
         self_eval = None
         if hp.compute_oob and hp.bootstrap and (oob_cnt > 0).any():
@@ -166,6 +211,8 @@ class RandomForestLearner(Learner):
         model.training_logs = build_training_logs(
             learner="rf", num_trees=forest.n_trees,
             growth_engine=engine_used, engine_fallback=fallback,
+            resilience=sess.events if sess is not None else None,
+            interrupted=interrupted,
             extra={"tree_parallelism": block, "oob": oob_logs,
                    "device": str(device),
                    **_engine_logs(gp, engine_used, td.binned, device)})

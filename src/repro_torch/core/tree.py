@@ -68,6 +68,74 @@ class Forest:
             n_nodes=sl(self.n_nodes), split_gain=sl(self.split_gain),
             tree_class=sl(self.tree_class))
 
+    # -------------------------------------------------- structure stats
+    def node_counts(self) -> dict:
+        # a leaf is any reachable node without children, including CART-
+        # pruned nodes, which keep their stale condition but no children
+        leaves = (self.left_child < 0) & _reachable(self)
+        per_tree = leaves.sum(1)
+        return {"n_trees": self.n_trees, "total_nodes": int(self.n_nodes.sum()),
+                "leaves_per_tree_mean": float(per_tree.mean()),
+                "nodes_per_tree_mean": float(self.n_nodes.mean())}
+
+    def variable_importances(self) -> dict[str, dict[str, float]]:
+        """Structural variable importances (paper App. B.2), one vectorized
+        pass over the SoA:
+
+          * NUM_NODES          — #splits using the feature
+          * NUM_AS_ROOT        — #trees whose root splits on it
+          * SUM_SCORE          — total split gain (recorded at training time;
+                                 omitted when no gains were recorded)
+          * INV_MEAN_MIN_DEPTH — 1 / (1 + mean over trees of the minimal
+                                 depth at which the feature appears; a tree
+                                 not using the feature contributes its own
+                                 depth). Higher = closer to the roots.
+
+        Every kind is higher-is-more-important so reports can share one
+        sort order. A pruned node (CART: left_child reset to -1 while the
+        stale condition remains) is a leaf and counts toward nothing.
+        """
+        depth = node_depths(self)
+        reach = depth >= 0
+        internal = (self.left_child >= 0) & reach
+        F = len(self.feature_names)
+        name_of = self.feature_names
+
+        def table(counts: np.ndarray) -> dict[str, float]:
+            return {name_of[j]: float(counts[j]) for j in range(F)}
+
+        t_idx, n_idx = np.nonzero(internal)
+        feats = self.feature[t_idx, n_idx]
+        if (feats == -2).any():
+            from repro_torch.core.api import YdfError
+            raise YdfError(
+                "The forest has sparse-oblique conditions (feature == -2), "
+                "which the port does not carry yet (ROADMAP A3).")
+        keep = feats >= 0
+        t_ax, n_ax, f_ax = t_idx[keep], n_idx[keep], feats[keep]
+        ok = f_ax < F
+        t_ax, n_ax, f_ax = t_ax[ok], n_ax[ok], f_ax[ok]
+
+        out = {"NUM_NODES": table(np.bincount(f_ax, minlength=F))}
+        roots = self.feature[:, 0]
+        out["NUM_AS_ROOT"] = table(np.bincount(
+            roots[(roots >= 0) & (roots < F)], minlength=F).astype(np.float64))
+        sg = self.split_gain
+        if sg is not None and len(f_ax) and sg[t_ax, n_ax].any():
+            out["SUM_SCORE"] = table(np.bincount(
+                f_ax, weights=np.maximum(sg[t_ax, n_ax], 0.0), minlength=F))
+        if F:
+            # min depth of each feature per tree; absent -> the tree's depth
+            T = self.n_trees
+            tree_depth = np.maximum(depth.max(axis=1), 0).astype(np.float64)
+            min_depth = np.tile(tree_depth[:, None], (1, F))
+            np.minimum.at(min_depth, (t_ax, f_ax),
+                          depth[t_ax, n_ax].astype(np.float64))
+            out["INV_MEAN_MIN_DEPTH"] = table(
+                1.0 / (1.0 + min_depth.mean(axis=0))) if T else table(
+                np.ones(F))
+        return out
+
 
 def empty_forest(n_trees: int, max_nodes: int, out_dim: int, *,
                  feature_names: list[str] | None = None) -> Forest:
@@ -118,6 +186,10 @@ def node_depths(forest: Forest) -> np.ndarray:
         cur_t = np.concatenate([ct, ct])
         cur_n = np.concatenate([cl, cl + 1])
     return depth
+
+
+def _reachable(forest: Forest) -> np.ndarray:
+    return node_depths(forest) >= 0
 
 
 def tree_depths(forest: Forest) -> np.ndarray:

@@ -16,7 +16,8 @@
     }
 
 :func:`validate_training_logs` is the shared gate; :func:`attach_profile`
-snapshots the active tracer's phase aggregates into ``logs["profile"]``.
+snapshots the active tracer's phase aggregates into ``logs["profile"]``;
+:func:`summarize_training_logs` gives the lines ``Model.summary`` prints.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from . import trace as _trace
 
 __all__ = ["TRAINING_LOGS_SCHEMA_VERSION", "REQUIRED_KEYS",
            "build_training_logs", "validate_training_logs",
-           "attach_profile"]
+           "attach_profile", "summarize_training_logs"]
 
 TRAINING_LOGS_SCHEMA_VERSION = 1
 
@@ -94,3 +95,32 @@ def attach_profile(logs: Dict[str, Any]) -> Dict[str, Any]:
     if tracer is not None:
         logs["profile"] = _export.profile_dict(tracer)
     return logs
+
+
+def summarize_training_logs(logs: Optional[Dict[str, Any]]) -> list:
+    """Uniform `summary()` lines for any schema-v1 training_logs."""
+    if not logs:
+        return []
+    if "schema_version" not in logs:
+        return [f"Training logs (legacy): {sorted(logs)}"]
+    lines = [
+        "Training logs (schema v%s): learner=%s trees=%d engine=%s%s" % (
+            logs.get("schema_version"), logs.get("learner"),
+            logs.get("num_trees", 0),
+            logs.get("growth_engine") or "-",
+            " (fallback from %s)" % logs["engine_fallback"]
+            if logs.get("engine_fallback") else "")]
+    res = logs.get("resilience") or []
+    if res or logs.get("interrupted"):
+        lines.append("  resilience: %d event(s)%s" % (
+            len(res), "; INTERRUPTED (truncated model)"
+            if logs.get("interrupted") else ""))
+    prof = logs.get("profile")
+    if prof:
+        top = sorted(prof.get("phases", {}).items(),
+                     key=lambda kv: -kv[1]["total_s"])[:3]
+        if top:
+            lines.append("  profile: " + ", ".join(
+                f"{n} {d['total_s']*1e3:.1f}ms x{d['count']}"
+                for n, d in top))
+    return lines

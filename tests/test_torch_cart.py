@@ -135,6 +135,15 @@ def test_training_logs_and_checkpoint(adult, tmp_path):
     assert (logs["learner"], logs["num_trees"], logs["growth_engine"],
             logs["histogram_backend"], logs["device"]) == \
         ("cart", 1, "batched", "numpy", "cpu")
-    with pytest.raises(YdfError, match="checkpoint"):
-        CartLearner(label="income", device="cpu").train(
-            train, checkpoint=str(tmp_path))
+    # checkpoint= is ported (tests/test_torch_checkpoint.py): the
+    # checkpointed run grows and prunes the same tree and logs its save
+    ck = CartLearner(label="income", device="cpu").train(
+        train, checkpoint=str(tmp_path))
+    for k in ("feature", "threshold", "left_child", "leaf_value", "n_nodes"):
+        np.testing.assert_array_equal(getattr(ck.forest, k),
+                                      getattr(got.forest, k), err_msg=k)
+    assert [e["event"] for e in ck.training_logs["resilience"]] == \
+        ["checkpoint"]
+    assert not ck.training_logs["interrupted"]
+    with pytest.raises(YdfError, match="checkpoint must be"):
+        CartLearner(label="income", device="cpu").train(train, checkpoint=1)

@@ -21,7 +21,10 @@ stats are integer counts, so every histogram cell is exact), with 26
 classes too; the device engine's 26-class forest repeats its bits and
 agrees with the CPU's on >= 99.5% of each structure field, as the device
 engine's other card-against-CPU checks (its float32 entropy terms take the
-card's ``logf`` and the CPU's ``torch.log``).
+card's ``logf`` and the CPU's ``torch.log``). Models trained on the card
+predict the same bits after a save and a load, and a training stopped and
+resumed on the card equals the uninterrupted card run on every Forest
+field (no tolerance: the kernels' sums are exact, so card runs repeat).
 """
 from __future__ import annotations
 
@@ -497,3 +500,41 @@ def test_cart_on_the_card_equals_the_cpu(cuda):
     assert card.training_logs["histogram_backend"] == "cuda"
     assert chip_smoke.identical(card, cpu)
 
+
+
+# ------------------------------------- saving and checkpointed training
+
+def test_saved_models_predict_the_same_on_the_card(cuda, tmp_path):
+    """``chip_smoke.check_model_io`` at a small size: the loaded GBT, RF
+    and CART predict through the tiled kernel ``array_equal`` with their
+    predictions before the save, with equal metrics, summary and
+    importances; the loaded RF through the single-tree kernel equals the
+    saved forest's and ``predict_naive``."""
+    import chip_smoke
+    data = chip_smoke.higgs_like(5_000)
+    rows = {k: v[:1_000] for k, v in data.items()}
+    models = {"gbt": chip_smoke.train_gbt(data, cuda, num_trees=10),
+              "rf": chip_smoke.train_rf(data, cuda, num_trees=2, max_depth=8),
+              "cart": chip_smoke.train_cart(data, cuda, max_depth=8)}
+    out = chip_smoke.check_model_io(models, rows, cuda, str(tmp_path))
+    assert out["tiled_launches"] >= 3 and out["single_launches"] == 2
+
+
+@pytest.mark.parametrize("fit,stop,hparams", [
+    ("train_gbt", 4, dict(num_trees=8)),
+    ("train_default", 4, dict(num_trees=8)),
+    ("train_rf_device", 1, dict(num_trees=4, tree_parallelism=2)),
+    ("train_rf", 1, dict(num_trees=4, tree_parallelism=2, max_depth=8)),
+    ("train_cart", 1, dict(max_depth=8)),
+], ids=["gbt_device", "gbt_batched", "rf_device", "rf_batched", "cart"])
+def test_resumed_training_on_the_card_equals_uninterrupted(cuda, tmp_path,
+                                                          fit, stop, hparams):
+    import chip_smoke
+    fit = getattr(chip_smoke, fit)
+    data = chip_smoke.higgs_like(5_000)
+    clean = fit(data, cuda, **hparams)
+    resumed, info = chip_smoke.stop_and_resume(
+        fit, data, cuda, str(tmp_path), "ck", stop, 2, **hparams)
+    assert 0 < info["trees_at_stop"] <= info["trees"]
+    assert resumed.training_logs["resilience"]
+    assert chip_smoke.same_forest(resumed.forest, clean.forest)

@@ -9,6 +9,8 @@ leaf values within 2e-5, predictions within 1e-4; losses rtol 1e-6.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -158,12 +160,19 @@ def test_unported_options_raise(adult, kw, want):
     assert fallback is None if reason is None else reason in fallback
 
 
-def test_checkpoint_and_ranking_raise(adult):
+def test_checkpoint_and_ranking_raise(adult, tmp_path):
+    # checkpoint= is ported (tests/test_torch_checkpoint.py): a directory
+    # trains and checkpoints; an argument that is neither a directory nor a
+    # CheckpointPolicy raises
     train, _ = adult
     learner = GradientBoostedTreesLearner(label="income", device="cpu",
                                           growth_engine="device", num_trees=1)
-    with pytest.raises(YdfError, match="Checkpointed"):
-        learner.train(train, checkpoint="ckpt")
+    with pytest.raises(YdfError, match="checkpoint must be"):
+        learner.train(train, checkpoint=42)
+    model = learner.train(train, checkpoint=str(tmp_path / "ckpt"))
+    assert [e["event"] for e in model.training_logs["resilience"]] == \
+        ["checkpoint"]
+    assert os.listdir(tmp_path / "ckpt") == ["ckpt-00000001"]
     with pytest.raises(YdfError, match="RANKING"):
         GradientBoostedTreesLearner(label="income", task=Task.RANKING,
                                     device="cpu",

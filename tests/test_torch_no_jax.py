@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, directly or
 transitively. Checked twice: by importing every module in a fresh
 interpreter, and statically over the sources (which also catches imports
-inside functions that an import alone would not run)."""
+inside functions that an import alone would not run). Nor does any of
+them import ``pickle``: saved models and checkpoints are plain data."""
 from __future__ import annotations
 
 import ast
@@ -61,6 +62,15 @@ def test_source_imports_neither_jax_nor_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [f"{path.name}:{line}: {name}" for line, name in _imported_roots(tree)
            if name.split(".")[0] in BANNED_ROOTS]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_source_imports_no_pickle(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [f"{path.name}:{line}: {name}" for line, name in _imported_roots(tree)
+           if name.split(".")[0] in ("pickle", "cPickle", "dill", "cloudpickle")]
     assert not bad, bad
 
 

@@ -20,6 +20,7 @@ level), as the reference does on a host without a TPU. Tolerances:
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -159,9 +160,17 @@ def test_unported_or_wrong_device_options_raise(adult, kw):
 
 
 def test_checkpoint_raises(adult, tmp_path):
-    with pytest.raises(YdfError, match="checkpoint"):
+    # checkpoint= is ported (tests/test_torch_checkpoint.py): an argument
+    # that is neither a directory nor a CheckpointPolicy raises, a
+    # directory checkpoints at the block boundaries
+    with pytest.raises(YdfError, match="checkpoint must be"):
         RandomForestLearner(label="income", num_trees=1, device="cpu").train(
-            adult, checkpoint=str(tmp_path))
+            adult, checkpoint=3.5)
+    model = RandomForestLearner(label="income", num_trees=1,
+                                device="cpu").train(adult,
+                                                    checkpoint=str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == ["ckpt-00000001"]
+    assert not model.training_logs["interrupted"]
 
 
 def test_learners_register_and_export():
