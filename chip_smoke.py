@@ -12,8 +12,11 @@ growth engine (growth_engine="device") and through the default batched
 engine (no override), compile it, and serve it through the traversal
 kernel; train the default Random Forest (max_depth 16, 4,096 nodes, sqrt(F)
 candidates, bootstrap, out-of-bag evaluation; the first RF_TREES of its 300
-trees) and the default CART tree on the same data and serve the forest; and
-run the single-tree traversal kernel on the trained forest and the GBT.
+trees) and the default CART tree on the same data and serve the forest;
+run the single-tree traversal kernel on the trained forest and the GBT;
+and train the paper's best settings, the benchmark_rank1 GBT and Random
+Forest (sparse-oblique splits; 2 trees each), and serve them through both
+traversal kernels.
 The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
@@ -156,8 +159,36 @@ JSON line each:
                      CKPT_TREES trees, each equal an uninterrupted run of
                      the same cut. Checkpoint write seconds and bytes, and
                      resume seconds.
+ 19. train_rank1   — the benchmark_rank1 GBT (best-first, RANDOM categorical
+                     splits, sparse oblique) and Random Forest at full width,
+                     cut to RANK1_TREES trees each: the batched engine, every
+                     axis-aligned histogram built by B3 (counts reset just
+                     before each run, read just after: launches == builds),
+                     the projections host numpy; seconds per tree, oblique
+                     nodes, span seconds and the gain scan's share. Gates at
+                     COMPARE_ROWS rows: the RF's card forest equals the
+                     CPU's on every field, twice; the GBT agrees with the
+                     CPU's plain-version run on >= 99.5% of each field.
+ 20. kernel_oblique — B2 and B4 in every plan variant on oblique forests:
+                     the hand zoo (P = 1, 7, 8, 9, 28, 128, 129, 300 over
+                     NaN, +-inf and +-1e20 in projected columns and column
+                     0), the near tie, and the trained rank1 forests over
+                     the validation rows and hostile rows; each equal to
+                     its plain version and to the vectorized engine bit for
+                     bit, ``predict_naive`` (``np.dot``) reported with each
+                     differing node's margin (only the near tie differs).
+ 21. serve_rank1   — the rank1 models serve the 10,000 validation rows
+                     through ``compile_predictor`` with no engine named (the
+                     cuda engine: one B2 launch a call) and through
+                     ``forest_predict(impl="single")`` (B4), every answer
+                     equal to ``finalize`` of the vectorized engine (counts
+                     reset just before, read just after); the RF saved and
+                     loaded predicts the same.
 
-Then the kernels line (``{"kernels": [...]}``), the card's name and power
+The timings phase also times B2 and B4 on the rank1 forests at 10,000 rows
+(``time_tiled``, ``time_single``; the bound counts 8 P bytes and 2 P
+operations per oblique node), and the kernels line carries those numbers
+under each traversal kernel's "oblique" key. Then the kernels line (``{"kernels": [...]}``), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 1 at once.
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -231,7 +262,8 @@ RF_TREES, RF_PROFILE_TREES = 16, 4
 # (nodes, 28, 256, 27) histograms on the host; deeper trees take minutes)
 WIDE = dict(HIGGS, name="synth_higgs_like_26", n=20_000, n_classes=26)
 WIDE_TREES, WIDE_DEPTH = 3, 6
-FOREST_FIELDS = STRUCT_FIELDS + ("threshold", "leaf_value", "split_gain")
+FOREST_FIELDS = STRUCT_FIELDS + ("threshold", "leaf_value", "split_gain",
+                                 "obl_weights", "obl_features")
 SINGLE_TIMED = (("gbt", 1024), ("gbt", 4096), ("rf", 10_000),
                 ("rf", 100_000))
 NAIVE_ROWS = 512          # rows held to the host's per-example predict_naive
@@ -240,6 +272,15 @@ NAIVE_ROWS = 512          # rows held to the host's per-example predict_naive
 # stage are cut to CKPT_ROWS rows (and the GBT to CKPT_TREES trees)
 CKPT_EVERY, CKPT_STOP_AT = 50, 100
 CKPT_ROWS, CKPT_TREES = 20_000, 20
+# sparse-oblique forests (benchmark_rank1@v1, paper App. C.1): both templates
+# at synth_higgs_like's full width, cut to RANK1_TREES trees (their
+# projections are host numpy, ~20 s a tree on a CPU at 100,000 rows); the
+# gates at COMPARE_ROWS rows; the hand zoo's projection widths P (below 8,
+# 8 to 128 and past 128, where numpy's pairwise sum splits)
+RANK1_TREES = 2
+OBLIQUE_DIMS = (1, 7, 8, 9, 28, 128, 129, 300)
+OBLIQUE_F = 24            # columns of the zoo's rows
+OBLIQUE_HOSTILE = (float("nan"), float("inf"), float("-inf"), 1e20, -1e20)
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -513,15 +554,10 @@ def traversal_cases() -> dict:
 def traversal_plan(forest, X, kernel: str, device, variant=None):
     """The plan a traversal kernel takes for X over ``forest``'s layout
     (``variant`` None: the one the plan picks)."""
-    from repro_torch.kernels.forest_infer import ops, plan
-    N = X.shape[0]
-    if kernel == "tiled":
-        lay = ops.device_packed(forest, device).layout
-        return plan.tiled_plan(N, lay.slots // lay.group, lay.group,
-                               lay.max_nodes, lay.group_masks[0], variant)
-    lay = ops.device_soa(forest, device).layout
-    return plan.single_plan(N, max(1, lay.slots), lay.max_nodes,
-                            lay.out_dim, lay.group_masks, variant)
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    tabs = (ops.device_packed if kernel == "tiled" else ops.device_soa)(
+        forest, device)
+    return forest_infer.plan_of(tabs.layout, X.shape[0], variant)
 
 
 def plan_variants(forest, X, kernel: str, device) -> tuple:
@@ -541,22 +577,30 @@ def check_variants(forest, X: np.ndarray, device,
     """Each traversal kernel of ``kernels`` in each plan variant its shapes
     allow (``plan_variants``) against its plain version on the same tensors
     (``torch.equal``; the tiled kernel in packed order and in tree order)
-    and, in tree order, against the host's ``predict_naive`` on the first
-    NAIVE_ROWS rows (``array_equal``). Returns the variants run, with their
-    plans, and the largest absolute difference (0.0 when bit-identical)."""
+    and, in tree order, against the host: ``predict_naive`` on the first
+    NAIVE_ROWS rows (``array_equal``), or for a forest with sparse-oblique
+    nodes the port's vectorized engine (``compile_predict_raw``: numpy's
+    pairwise projection sums, the kernels' order) on every row, with
+    ``predict_naive`` (``np.dot``) on the first NAIVE_ROWS rows reported by
+    ``naive_divergence``. Returns the variants run, with their plans, and
+    the largest absolute difference (0.0 when bit-identical)."""
     import torch
-    from repro_torch.core.tree import predict_naive
+    from repro_torch.core.tree import compile_predict_raw, predict_naive
     from repro_torch.kernels.forest_infer import ops
     from repro_torch.kernels.forest_infer.forest_infer import run_single, run_tiled
     from repro_torch.kernels.forest_infer.ref import (
         forest_predict_packed_ref, forest_predict_ref)
     Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
-    naive = predict_naive(forest, np.asarray(X[:NAIVE_ROWS], np.float32))
+    X32 = np.ascontiguousarray(X, np.float32)
+    oblique = forest.has_oblique()
+    host_rows = len(X) if oblique else NAIVE_ROWS
+    host = (compile_predict_raw(forest)(X32) if oblique
+            else predict_naive(forest, X32[:NAIVE_ROWS]))
     out, err = {}, 0.0
     for kernel in kernels:
         if kernel == "tiled":
             tabs = ops.device_packed(forest, device)
-            want = forest_predict_packed_ref(Xd, *tabs.tables)
+            want = forest_predict_packed_ref(Xd, *tabs.tables, **tabs.obl)
             calls = {"packed": (lambda v: run_tiled(Xd, tabs.layout, variant=v),
                                 want),
                      "tree order": (lambda v: run_tiled(
@@ -564,7 +608,8 @@ def check_variants(forest, X: np.ndarray, device,
                          want[:, tabs.inv_order])}
         else:
             tabs = ops.device_soa(forest, device)
-            want = forest_predict_ref(Xd, *tabs[:5], depth=forest.depth)
+            want = forest_predict_ref(Xd, *tabs[:5], depth=forest.depth,
+                                      **tabs.obl)
             calls = {"tree order": (lambda v: run_single(Xd, tabs.layout,
                                                          variant=v), want)}
         chosen = traversal_plan(forest, X, kernel, device)
@@ -579,17 +624,23 @@ def check_variants(forest, X: np.ndarray, device,
                         f"{kernel} ({v}, {what}) != plain version: max abs "
                         f"diff {float((got - plain).abs().max())}")
                 if what == "tree order" and not np.array_equal(
-                        got[:NAIVE_ROWS].cpu().numpy(), naive):
-                    raise AssertionError(f"{kernel} ({v}) != predict_naive")
+                        got[:host_rows].cpu().numpy(), host):
+                    raise AssertionError(f"{kernel} ({v}) != " + (
+                        "the vectorized engine" if oblique
+                        else "predict_naive"))
                 if got.numel():
                     err = max(err, float((got - plain).abs().max()))
             p = traversal_plan(forest, X, kernel, device, v)
             rows[v] = {"picked": v == chosen.variant, "group": p.group,
                        "blocks": p.blocks, "smem": p.smem}
         out[kernel] = rows
-    return {"rows": len(X), "trees": forest.n_trees,
-            "max_nodes": forest.max_nodes, "depth": forest.depth,
-            "variants": out, "max_abs_err": err}
+    res = {"rows": len(X), "trees": forest.n_trees,
+           "max_nodes": forest.max_nodes, "depth": forest.depth,
+           "variants": out, "max_abs_err": err}
+    if oblique:
+        res["naive"] = naive_divergence(forest, X32[:NAIVE_ROWS],
+                                        host[:NAIVE_ROWS])
+    return res
 
 
 def check_all_variants(cases: dict, device, kernels) -> dict:
@@ -1074,16 +1125,34 @@ def device_only_ms(fn, reps: int = 20, warmup: int = 3,
     return float(np.median(times))
 
 
+def oblique_depths(forest) -> np.ndarray:
+    """(T, M) float32: the sparse-oblique nodes on the path from the root
+    to each node, the node excluded (children follow their parents in the
+    SoA, so one pass in node order)."""
+    T, M = forest.feature.shape
+    out = np.zeros((T, M), np.float32)
+    t = np.arange(T)
+    for node in range(M):
+        lc = forest.left_child[:, node]
+        live = lc >= 0
+        add = out[t[live], node] + (forest.feature[t[live], node] == -2)
+        out[t[live], lc[live]] = add
+        out[t[live], lc[live] + 1] = add
+    return out
+
+
 def traversal_bound(forest, X, lay, extra_bytes: int = 0) -> dict:
     """The least time the card could take for one traversal call over the
     node layout ``lay``: bytes (X read once; each node the trees hold read
     once as its 16-byte record, and not the padding of a packed layout;
-    each mask of the layout's side table, 32 B, once; when O > 1 each held
-    node's leaf row, 4 * O B, once; ``extra_bytes`` of other inputs; one
-    output per example and tree written once) over HBM bandwidth, against
-    node visits (one fp32 compare each, counted on this input by
-    traversing with each node's depth as its leaf value) over the fp32
-    peak."""
+    each mask of the layout's side table, 32 B, once; each oblique node's
+    P (column, weight) pairs, 8 P B, once; when O > 1 each held node's leaf
+    row, 4 * O B, once; ``extra_bytes`` of other inputs; one output per
+    example and tree written once) over HBM bandwidth, against operations
+    over the fp32 peak: one compare per node visit, and per oblique node
+    visit P multiplies and P adds (visits counted on this input by
+    traversing with each node's depth, and its oblique depth, as its leaf
+    value)."""
     import torch
     from repro_torch.core.tree import node_depths
     from repro_torch.kernels.forest_infer import ops, plan
@@ -1092,18 +1161,26 @@ def traversal_bound(forest, X, lay, extra_bytes: int = 0) -> dict:
     n = X.shape[0]
     nodes = int(forest.n_nodes.sum())
     masks = int(lay.mask_start[-1])
+    pairs = int(lay.obl_start[-1]) * lay.obl_dims
     node_bytes = plan.RECORD_BYTES + (4 * O if O > 1 else 0)
     nbytes = (X.numel() * X.element_size() + nodes * node_bytes
-              + masks * plan.MASK_BYTES + extra_bytes
-              + n * forest.n_trees * O * 4)
+              + masks * plan.MASK_BYTES + pairs * plan.PAIR_BYTES
+              + extra_bytes + n * forest.n_trees * O * 4)
     soa = ops.device_soa(forest, X.device)
-    depth = np.maximum(node_depths(forest), 0).astype(np.float32)[..., None]
-    visits = float(forest_predict_ref(
-        X, soa.feature, soa.threshold, soa.cat_mask, soa.left_child,
-        torch.from_numpy(depth).to(X.device), depth=forest.depth).sum())
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, visits / PEAK_FP32_S * 1e3
+
+    def path_sum(per_node: np.ndarray) -> float:
+        leaf = torch.from_numpy(per_node[..., None]).to(X.device)
+        return float(forest_predict_ref(
+            X, soa.feature, soa.threshold, soa.cat_mask, soa.left_child,
+            leaf, depth=forest.depth, **soa.obl).sum())
+
+    visits = path_sum(np.maximum(node_depths(forest), 0).astype(np.float32))
+    obl_visits = path_sum(oblique_depths(forest)) if pairs else 0.0
+    ops_count = visits + obl_visits * 2 * lay.obl_dims
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops_count / PEAK_FP32_S * 1e3
     return {"bytes": nbytes, "nodes_held": nodes, "masks_held": masks,
-            "node_visits": visits,
+            "oblique_pairs_held": pairs, "node_visits": visits,
+            "oblique_visits": obl_visits, "operations": ops_count,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1429,7 +1506,7 @@ def time_single(cases: dict, device) -> dict:
                                                         variant=v))
                    for v in plan_variants(forest, X, "single", device)},
                "plain_ms": device_ms(lambda: forest_predict_ref(
-                   Xd, *soa[:5], depth=forest.depth)),
+                   Xd, *soa[:5], depth=forest.depth, **soa.obl)),
                "kernel_path_ms": device_ms(lambda: ops.forest_predict(
                    forest, Xd, "single", device)),
                "plan": {"variant": p.variant, "group": p.group,
@@ -1469,8 +1546,9 @@ def identical(a, b, n_trees: int | None = None) -> bool:
     """Every forest field of the first ``n_trees`` trees (all when None)
     equal, and the depth when all trees are compared."""
     sl = slice(None) if n_trees is None else slice(0, n_trees)
-    same = all(np.array_equal(getattr(a.forest, k)[sl], getattr(b.forest, k)[sl])
-               for k in FOREST_FIELDS)
+    part = lambda m, k: None if getattr(m.forest, k) is None \
+        else getattr(m.forest, k)[sl]
+    same = all(np.array_equal(part(a, k), part(b, k)) for k in FOREST_FIELDS)
     return same and (n_trees is not None or a.forest.depth == b.forest.depth)
 
 
@@ -1833,6 +1911,325 @@ def check_checkpoint(data: dict, trained, rf_device, device,
     return out
 
 
+# ------------------------------------------- sparse-oblique forests (A3)
+
+def oblique_forest(P: int, seed: int, n_trees: int = 3, n_splits: int = 12,
+                   n_features: int = OBLIQUE_F, cat_feats=(3,)):
+    """A random forest of numerical, categorical and sparse-oblique splits
+    (P (column, weight) slots a node; a random number of them live, the rest
+    the padding: weight 0 on column 0). Columns may repeat within a node;
+    weights span two decades around 1."""
+    from repro_torch.core.tree import empty_forest, node_depths
+    rng = np.random.default_rng(seed)
+    f = empty_forest(n_trees, 2 * n_splits + 1, 1, oblique_dims=P,
+                     feature_names=[f"f{j}" for j in range(n_features)])
+    num = [j for j in range(n_features) if j not in cat_feats]
+    for t in range(n_trees):
+        f.leaf_value[t, 0] = rng.normal()
+        leaves, count = [0], 1
+        for _ in range(n_splits):
+            node = leaves.pop(int(rng.integers(len(leaves))))
+            kind = int(rng.integers(3))
+            if kind == 2:
+                live = int(rng.integers(1, P + 1))
+                f.feature[t, node] = -2
+                f.obl_features[t, node, :live] = rng.integers(0, n_features,
+                                                              live)
+                f.obl_weights[t, node, :live] = (
+                    rng.normal(size=live) * 10.0 ** rng.uniform(-1, 1, live))
+                f.threshold[t, node] = rng.normal() * np.sqrt(live)
+            elif kind == 1 and cat_feats:
+                f.feature[t, node] = int(rng.choice(cat_feats))
+                words = rng.integers(0, 2 ** 32, size=8, dtype=np.uint64)
+                f.cat_mask[t, node] = words.astype(np.uint32) | np.uint32(1)
+            else:
+                f.feature[t, node] = int(rng.choice(num))
+                f.threshold[t, node] = rng.normal()
+            f.left_child[t, node] = count
+            f.leaf_value[t, count:count + 2] = rng.normal(size=(2, 1))
+            leaves += [count, count + 1]
+            count += 2
+        f.n_nodes[t] = count
+    f.depth = int(max(0, node_depths(f).max()))
+    return f
+
+
+def oblique_rows(n: int, F: int, seed: int, cat_feats=(3,)) -> np.ndarray:
+    """(n, F) float32: normal values, codes -5 .. 299 in ``cat_feats``, and
+    in every third row OBLIQUE_HOSTILE values (NaN, +-inf, +-1e20) in column
+    0 (the padding's column) and in a third of the other columns."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    for j in cat_feats:
+        X[:, j] = rng.integers(-5, 300, n)
+    bad = np.array(OBLIQUE_HOSTILE, np.float32)
+    for r in range(0, n, 3):
+        cols = np.concatenate([[0], np.nonzero(rng.random(F) < 0.33)[0]])
+        X[r, cols] = bad[(r // 3 + np.arange(len(cols))) % len(bad)]
+    return X
+
+
+def oblique_zoo() -> dict:
+    """(forest, X) cases: a forest for each projection width of
+    OBLIQUE_DIMS over hostile rows."""
+    return {f"P={P}": (oblique_forest(P, seed=40 + P),
+                       oblique_rows(300, OBLIQUE_F, seed=P))
+            for P in OBLIQUE_DIMS}
+
+
+def near_tie(P: int = 28, seed: int = 0):
+    """A one-node oblique forest and one row on which ``np.dot`` (the
+    reference's ``predict_naive``) and numpy's pairwise sum (its
+    ``predict_raw``, and the kernels) differ, the threshold set to the
+    larger of the two: the pairwise order and ``np.dot`` send the row to
+    different leaves. Searched from ``seed`` on this host's numpy."""
+    from repro_torch.core.tree import empty_forest
+    rng = np.random.default_rng(seed)
+    while True:
+        w = rng.normal(size=P).astype(np.float32)
+        x = (rng.normal(size=P) * 10).astype(np.float32)
+        dot, pw = np.float32(np.dot(w, x)), (w * x).sum()
+        if dot != pw:
+            break
+    f = empty_forest(1, 3, 1, oblique_dims=P,
+                     feature_names=[f"f{j}" for j in range(P)])
+    f.feature[0, 0], f.left_child[0, 0], f.n_nodes[0] = -2, 1, 3
+    f.obl_features[0, 0] = np.arange(P)
+    f.obl_weights[0, 0] = w
+    f.threshold[0, 0] = max(dot, pw)
+    f.leaf_value[0, 1:3, 0] = (-1.0, 1.0)
+    f.depth = 1
+    return f, x[None]
+
+
+def naive_divergence(forest, X: np.ndarray, vec: np.ndarray) -> dict:
+    """``predict_naive`` (``np.dot`` projections) against the vectorized
+    engine's per-tree answers ``vec`` on rows ``X``: the (row, tree) pairs
+    that differ and, for the first few, the oblique node where the two sums
+    fall on opposite sides of the threshold, with both sums and the
+    pairwise sum's margin to the threshold."""
+    from repro_torch.core.tree import cat_code, predict_naive
+    naive = predict_naive(forest, X)
+    rows, trees = np.nonzero((naive != vec).any(-1))
+    ties = []
+    for n, t in list(zip(rows.tolist(), trees.tolist()))[:8]:
+        node = 0
+        while forest.left_child[t, node] >= 0:
+            f, thr = forest.feature[t, node], forest.threshold[t, node]
+            if f == -2:
+                w = forest.obl_weights[t, node]
+                xs = X[n, forest.obl_features[t, node]]
+                dot, pw = np.float32(np.dot(w, xs)), (w * xs).sum()
+                if (dot >= thr) != (pw >= thr):
+                    ties.append({"row": n, "tree": t, "node": node,
+                                 "dot": float(dot), "pairwise": float(pw),
+                                 "threshold": float(thr),
+                                 "margin": float(pw) - float(thr)})
+                    break
+                go = pw >= thr
+            elif forest.cat_mask[t, node].any():
+                code = int(cat_code(X[n, f]))
+                go = bool((forest.cat_mask[t, node, code // 32]
+                           >> (code % 32)) & 1)
+            else:
+                go = X[n, f] >= thr
+            node = forest.left_child[t, node] + int(go)
+    return {"rows": len(X), "pairs_differ": int(len(rows)),
+            "near_ties": ties}
+
+
+def rank1_agreement(a, b) -> dict:
+    """Share of equal entries of each structure field and of the oblique
+    tables of two forests."""
+    return {k: float((getattr(a.forest, k) == getattr(b.forest, k)).mean())
+            for k in STRUCT_FIELDS + ("obl_features", "obl_weights")}
+
+
+def train_rank1(data: dict, device, backend) -> tuple:
+    """The benchmark_rank1 GBT (BEST_FIRST_GLOBAL, RANDOM categorical
+    splits, sparse-oblique projections) and Random Forest (RANDOM
+    categorical, sparse oblique) at ``data``'s full width, cut to
+    RANK1_TREES trees, on the card. Each resolves to the batched engine,
+    whose every axis-aligned histogram is built by B3 (counts reset just
+    before the run, read just after: launches == builds); the projections
+    are host numpy. A traced run gives the span seconds and the gain
+    scan's share (the projection pass is inside ``grower/gain_scan``).
+    Gates at COMPARE_ROWS rows: the RF's card forest equals the CPU's on
+    every field and a second card run repeats it (``compare_exact``); the
+    GBT agrees with the CPU's ``histogram_backend="torch"`` run on >= 99.5%
+    of each field (as ``train_best_first``)."""
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.obs import clock, trace
+    from repro_torch.obs.export import phase_summary
+    models, out = {}, {}
+    for name, fit, tree_span in (("gbt", train_default, "gbt/tree"),
+                                 ("rf", train_rf, "rf/block")):
+        histogram.LAUNCHES = 0           # the training run starts here
+        backend.builds = 0
+        with trace.capture() as tracer:
+            t0 = clock.perf()
+            model = fit(data, device, template="benchmark_rank1",
+                        num_trees=RANK1_TREES)
+            seconds = clock.perf() - t0
+        launches, builds = histogram.LAUNCHES, backend.builds  # ... ends here
+        logs = model.training_logs
+        if (logs["growth_engine"], logs.get("histogram_backend")) != (
+                "batched", "cuda"):
+            raise AssertionError(f"rank1 {name} trained with "
+                                 f"{logs['growth_engine']} / "
+                                 f"{logs.get('histogram_backend')}")
+        if builds <= 0 or launches != builds:
+            raise AssertionError(f"rank1 {name}: {builds} histogram builds "
+                                 f"made {launches} kernel launches")
+        f = model.forest
+        internal = f.left_child >= 0
+        n_obl = int(((f.feature == -2) & internal).sum())
+        if not n_obl:
+            raise AssertionError(f"rank1 {name} grew no oblique node")
+        phases = {k: {"count": int(d["count"]), "total_s": d["total_s"]}
+                  for k, d in phase_summary(tracer).items()}
+        tree_s = phases[tree_span]["total_s"]
+        out[name] = {
+            "rows": len(data["label"]), "trees": f.n_trees,
+            "seconds": seconds, "seconds_per_tree": seconds / f.n_trees,
+            "builds": builds, "launches": launches,
+            "internal_nodes": int(internal.sum()), "oblique_nodes": n_obl,
+            "depth": f.depth, "obl_dims": int(f.obl_weights.shape[-1]),
+            "phases": phases,
+            "gain_scan_share_of_trees":
+                phases["grower/gain_scan"]["total_s"] / tree_s,
+            "self_evaluation": {k: v for k, v in
+                                model.self_evaluation.metrics.items()
+                                if isinstance(v, float)}}
+        models[name] = model
+    out["rf"]["card_vs_cpu"] = compare_exact(
+        train_rf, device, template="benchmark_rank1", num_trees=RANK1_TREES)
+    cut = higgs_like(COMPARE_ROWS)
+    kw = dict(template="benchmark_rank1", num_trees=RANK1_TREES,
+              early_stopping="NONE")
+    card = train_default(cut, device, **kw)
+    agree = rank1_agreement(card, train_default(cut, "cpu",
+                                                histogram_backend="torch",
+                                                **kw))
+    low = {k: v for k, v in agree.items() if v < 0.995}
+    if low:
+        raise AssertionError(f"rank1 GBT card vs CPU (plain version) "
+                             f"agrees only {low}")
+    out["gbt"]["card_vs_cpu_plain"] = {"rows": COMPARE_ROWS, "agree": agree}
+    return models, out
+
+
+def check_oblique(models: dict, rows: dict, device) -> dict:
+    """B2 and B4 on sparse-oblique forests in every plan variant
+    (``check_variants``: their plain versions bit for bit, the vectorized
+    engine bit for bit on every row, ``predict_naive`` reported on the
+    first NAIVE_ROWS rows): the hand zoo (P of OBLIQUE_DIMS over hostile
+    rows), the near-tie forest, and the trained rank1 forests over the
+    validation rows and over hostile rows. On the near tie ``predict_naive``
+    must differ from the vectorized engine, and nowhere else."""
+    from repro_torch.core.dataspec import BatchEncoder
+    cases = {**oblique_zoo(), "near tie": near_tie()}
+    for name, m in models.items():
+        X = BatchEncoder(m.spec, m.features).encode(
+            {k: rows[k] for k in m.features})
+        cases[f"{name}, trained"] = (m.forest, X)
+        cases[f"{name}, trained, hostile"] = (
+            m.forest, oblique_rows(600, X.shape[1], seed=17, cat_feats=()))
+    res = check_all_variants(cases, device, ("tiled", "single"))
+    differ = {k: r["naive"]["pairs_differ"] for k, r in res["cases"].items()}
+    if differ.pop("near tie") != 1:
+        raise AssertionError("the near tie did not split np.dot from the "
+                             "pairwise sum")
+    res["naive_differs_elsewhere"] = {k: v for k, v in differ.items() if v}
+    return res
+
+
+def serve_rank1(models: dict, rows: dict, device, scratch: str) -> dict:
+    """The trained rank1 models serve ``rows``: ``compile_predictor`` with
+    no engine named (the card's chain: B2, one launch a call) and
+    ``forest_predict(impl="single")`` (B4), every answer equal to
+    ``finalize`` of the vectorized engine bit for bit (counts reset just
+    before, read just after); then the Random Forest saved and loaded
+    predicts the same."""
+    import torch
+    from repro_torch.core import Model
+    from repro_torch.core.engines import compile_predictor
+    from repro_torch.core.tree import compile_predict_raw
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    from repro_torch.obs import clock
+    out, served = {}, {}
+    forest_infer.LAUNCHES = 0            # serving starts here
+    forest_infer.SINGLE_LAUNCHES = 0
+    for name, m in models.items():
+        feats = {k: rows[k] for k in m.features}
+        pred = compile_predictor(m, device=device)
+        if pred.name != "cuda":
+            raise AssertionError(f"rank1 {name} compiled to {pred.name}")
+        t0 = clock.perf()
+        got = pred.predict(feats)
+        seconds = clock.perf() - t0
+        X = pred.encode(feats)
+        want = pred.finalize(compile_predict_raw(m.forest)(X))
+        single = pred.finalize(ops.forest_predict(
+            m.forest, X, "single", device).cpu().numpy())
+        if not (np.array_equal(got, want) and np.array_equal(single, want)):
+            raise AssertionError(f"rank1 {name}: served answers != "
+                                 "finalize(vectorized)")
+        served[name] = got
+        out[name] = {"rows": len(X), "engine": pred.name, "seconds": seconds}
+    torch.cuda.synchronize()
+    launches = forest_infer.LAUNCHES     # ... and ends here
+    single = forest_infer.SINGLE_LAUNCHES
+    if launches != len(models) or single != len(models):
+        raise AssertionError(f"{len(models)} models served with {launches} "
+                             f"B2 and {single} B4 launches")
+    rf = models["rf"]
+    path = os.path.join(scratch, "rank1_rf")
+    rf.save(path)
+    back = Model.load(path)
+    if not same_forest(back.forest, rf.forest) or not np.array_equal(
+            back.predict({k: rows[k] for k in rf.features}, device=device),
+            served["rf"]):
+        raise AssertionError("the loaded rank1 RF predicts differently")
+    return {**out, "tiled_launches": launches, "single_launches": single,
+            "rf_saved_and_loaded": True, "rf_dir_bytes": dir_bytes(path)}
+
+
+def time_tiled(cases: dict, device) -> dict:
+    """B2 over the cached packed layout (per call and device, in packed
+    order; its tree-order store and each plan variant, device), its plain
+    version, the whole ``forest_predict(impl="cuda")`` and its bound per
+    named (forest, X) case."""
+    import torch
+    from repro_torch.kernels.forest_infer import ops
+    from repro_torch.kernels.forest_infer.forest_infer import run_tiled
+    from repro_torch.kernels.forest_infer.ref import forest_predict_packed_ref
+    out = {}
+    for name, (forest, X) in cases.items():
+        packed = ops.device_packed(forest, device)
+        Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+        kernel = lambda: run_tiled(Xd, packed.layout)
+        p = traversal_plan(forest, X, "tiled", device)
+        row = {"kernel_ms": device_ms(kernel),
+               "kernel_device_ms": device_only_ms(kernel),
+               "variant_device_ms": {
+                   v: device_only_ms(lambda: run_tiled(Xd, packed.layout,
+                                                       variant=v))
+                   for v in plan_variants(forest, X, "tiled", device)},
+               "tree_order_device_ms": device_only_ms(
+                   lambda: run_tiled(Xd, packed.layout, tree_order=True)),
+               "plain_ms": device_ms(lambda: forest_predict_packed_ref(
+                   Xd, *packed.tables, **packed.obl)),
+               "kernel_path_ms": device_ms(lambda: ops.forest_predict(
+                   forest, Xd, "cuda", device)),
+               "plan": {"variant": p.variant, "group": p.group,
+                        "blocks": p.blocks, "smem": p.smem}}
+        row.update(traversal_bound(forest, Xd, packed.layout,
+                                   packed.block_depth.numel() * 4))
+        out[name] = row
+    return out
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -2000,6 +2397,15 @@ def main() -> int:
             scratch))
         emit(phase="checkpoint", card=card, **check_checkpoint(
             data, trained, rf_device, device, scratch))
+
+        # sparse-oblique forests: the benchmark_rank1 templates
+        rank1, rank1_run = train_rank1(data, device, backend)
+        emit(phase="train_rank1", card=card, cut=(
+            f"{RANK1_TREES} trees of each template (300 by default); "
+            "gates at COMPARE_ROWS rows"), **rank1_run)
+        emit(phase="kernel_oblique", **check_oblique(rank1, valid, device))
+        rank1_served = serve_rank1(rank1, valid, device, scratch)
+        emit(phase="serve_rank1", **rank1_served)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -2039,10 +2445,20 @@ def main() -> int:
                           X_rf_all[:n] if name == "rf"
                           else encoded_inputs(n, 100 + n))
         for name, n in SINGLE_TIMED}, device)
+    oblique_cases = {}
+    for name, m in rank1.items():
+        X_valid_m = BatchEncoder(m.spec, m.features).encode(
+            {k: valid[k] for k in m.features})
+        oblique_cases[f"rank1 {name} N={len(X_valid_m)}"] = (m.forest,
+                                                             X_valid_m)
+    tiled_obl = time_tiled(oblique_cases, device)
+    single_obl = time_single(oblique_cases, device)
     emit(phase="timings", card=card, **{f"N={n}": row for n, row in timings.items()},
          **{f"fused {k}": row for k, row in fused_t.items()},
          **{f"hist {k}": row for k, row in hist_t.items()},
          **{f"single {k}": row for k, row in single_t.items()},
+         **{f"tiled oblique {k}": row for k, row in tiled_obl.items()},
+         **{f"single oblique {k}": row for k, row in single_obl.items()},
          server_p50_ms=stats["p50_ms"], server_p99_ms=stats["p99_ms"],
          server_rows_per_s=stats["rows_per_s"])
 
@@ -2054,6 +2470,17 @@ def main() -> int:
     h = hist_t[main_k[0]]
     main_s = "rf N={}".format(SINGLE_TIMED[2][1])   # the trained forest
     s1 = single_t[main_s]
+    main_o = next(k for k in oblique_cases if k.startswith("rank1 rf"))
+
+    def oblique_row(row: dict, launches: int) -> dict:
+        """A kernel's numbers on the rank1 Random Forest (serve_rank1)."""
+        return {"launches": launches, "ms": row["kernel_ms"],
+                "device_ms": row["kernel_device_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "shape": (f"{main_o}, T={rank1['rf'].forest.n_trees}, "
+                          f"M={rank1['rf'].forest.max_nodes}, "
+                          f"P={rank1['rf'].forest.obl_weights.shape[-1]}")}
     print(json.dumps({"kernels": [{
         "name": "forest_infer_tiled",
         "route": "cuda",
@@ -2066,6 +2493,8 @@ def main() -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None,
         "shape": f"N={main_n}, B={kern['B']}, TB={kern['TB']}, M={kern['M']}, O=1",
+        "oblique": oblique_row(tiled_obl[main_o],
+                               rank1_served["tiled_launches"]),
     }, {
         "name": "fused_split",
         "route": "cuda",
@@ -2092,6 +2521,7 @@ def main() -> int:
         "library_ms": h["library_ms"],
         "shape": f"N={HIST_N}, F={HIST_F}, S=4 (gh), n_nodes={main_k[-1]}",
         "launches_per_call": h["launches_per_call"],
+        "rank1_launches": {k: v["launches"] for k, v in rank1_run.items()},
     }, {
         "name": "forest_single",
         "route": "cuda",
@@ -2105,6 +2535,8 @@ def main() -> int:
         "library_ms": None,
         "shape": (f"{main_s}, T={rf.forest.n_trees}, M={rf.forest.max_nodes}, "
                   f"depth={rf.forest.depth}, O={rf.forest.leaf_value.shape[-1]}"),
+        "oblique": oblique_row(single_obl[main_o],
+                               rank1_served["single_launches"]),
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ The port never sees a ``repro`` object and never unpickles ``model.pkl``
 
   * its ``Forest`` fields as numpy arrays (``feature``, ``threshold``,
     ``cat_mask``, ``left_child``, ``leaf_value``, ``n_nodes``, ``depth``,
-    ``tree_class``, ``init_pred``, ``out_dim``, and the training-side
+    ``tree_class``, ``init_pred``, ``out_dim``, ``obl_weights`` and
+    ``obl_features`` (both (T, M, P), required when any node is
+    sparse-oblique, ``feature == -2``), and the training-side
     ``split_bin`` and ``split_gain`` when given: the gains are what the
     SUM_SCORE importance sums);
   * the dataspec dict that ``repro.core.dataspec.spec_to_dict`` writes (the
@@ -36,8 +38,10 @@ _REQUIRED = ("feature", "threshold", "cat_mask", "left_child", "leaf_value",
 
 
 def forest_from_arrays(arrays: dict, feature_names: list[str]) -> Forest:
-    """A port Forest from the reference Forest's fields; checks shapes and
-    refuses sparse-oblique conditions, which the port does not serve."""
+    """A port Forest from the reference Forest's fields; checks shapes, and
+    that a forest with sparse-oblique nodes (``feature == -2``) carries its
+    ``obl_weights`` (float32) and ``obl_features`` (int32, >= 0), both
+    (T, M, P) with P >= 1."""
     missing = [k for k in _REQUIRED if k not in arrays]
     if missing:
         raise YdfError(f"Forest arrays are missing {missing}; expected the "
@@ -47,11 +51,25 @@ def forest_from_arrays(arrays: dict, feature_names: list[str]) -> Forest:
     if feature.ndim != 2:
         raise YdfError(f"feature must be (T, M), got {feature.shape}")
     T, M = feature.shape
-    if (feature == -2).any():
+    obl_w, obl_f = arrays.get("obl_weights"), arrays.get("obl_features")
+    if (obl_w is None) != (obl_f is None):
+        raise YdfError("obl_weights and obl_features come together: pass "
+                       "both or neither.")
+    if obl_w is not None:
+        obl_w = np.asarray(obl_w, np.float32)
+        obl_f = np.asarray(obl_f, np.int32)
+        if obl_w.ndim != 3 or obl_w.shape[:2] != (T, M) \
+                or obl_f.shape != obl_w.shape:
+            raise YdfError(f"obl_weights and obl_features must both be "
+                           f"(T, M, P) with (T, M) = {(T, M)}, got "
+                           f"{obl_w.shape} and {obl_f.shape}")
+        if (obl_f < 0).any():
+            raise YdfError("obl_features holds a negative column")
+    if (feature == -2).any() and (obl_w is None or obl_w.shape[-1] == 0):
         raise YdfError(
-            "The forest has sparse-oblique conditions (feature == -2); the "
-            "port serves axis-aligned numerical and categorical conditions "
-            "only. Retrain with split_axis='AXIS_ALIGNED'.")
+            "The forest has sparse-oblique conditions (feature == -2) but no "
+            "oblique tables; pass the reference Forest's obl_weights and "
+            "obl_features, (T, M, P) each.")
     leaf_value = np.asarray(arrays["leaf_value"], np.float32)
     cat_mask = np.asarray(arrays["cat_mask"], np.uint32)
     shapes = {"threshold": (T, M), "left_child": (T, M),
@@ -88,7 +106,8 @@ def forest_from_arrays(arrays: dict, feature_names: list[str]) -> Forest:
         split_bin=(None if split_bin is None
                    else np.asarray(split_bin, np.uint16)),
         split_gain=(None if split_gain is None
-                    else np.asarray(split_gain, np.float32)))
+                    else np.asarray(split_gain, np.float32)),
+        obl_weights=obl_w, obl_features=obl_f)
 
 
 def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,

@@ -2,12 +2,17 @@
 DESIGN.md §5): a model compiles to an engine, and ``compile_predictor``
 bundles that engine with the request encoder and the model's output head.
 
-Engines (all produce bit-identical per-tree leaf outputs):
+Engines (all produce bit-identical per-tree leaf outputs; "naive" projects
+sparse-oblique nodes with ``np.dot``, as the reference's does, and may differ
+from the others at a near-tie with a threshold):
   * "cuda"       — the hand-written traversal kernel over the depth-packed
-                   layout (kernels/forest_infer), on a CUDA device. Compiling
-                   it builds and loads the kernel library and uploads the
-                   packed forest, so a build error (RuntimeError) surfaces
-                   at compile time. Its dispatch errors (a failed launch)
+                   layout (kernels/forest_infer), on a CUDA device, for
+                   numerical, categorical and sparse-oblique nodes alike
+                   (the reference's Pallas engines refuse oblique forests
+                   and serve them on the host; here they stay on the
+                   card). Compiling it builds and loads the kernel library
+                   and uploads the packed forest, so a build error
+                   (RuntimeError) surfaces at compile time. Its dispatch errors (a failed launch)
                    propagate as they are, never as EngineFailure: no
                    degradation chain serves around a dead kernel.
   * "ref"        — the plain PyTorch gather traversal over the raw SoA, on

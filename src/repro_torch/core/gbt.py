@@ -18,8 +18,12 @@ the trees so far, the cached train and validation predictions, the
 early-stopping bookkeeping and the host RNG's state. A resumed run on the
 same device type grows the same forest bit for bit.
 
-Not ported yet: sparse-oblique splits (``split_axis="SPARSE_OBLIQUE"`` and
-the benchmark_rank1 template raise) and the ranking task.
+``split_axis="SPARSE_OBLIQUE"`` (and the ``benchmark_rank1`` template,
+which also sets BEST_FIRST_GLOBAL growth and RANDOM categorical splits)
+adds a sparse-oblique projection pass per node on the host; its
+configurations resolve to the batched engine, whose axis-aligned
+histograms still go through the histogram backend (the CUDA kernel on the
+card). Not ported yet: the ranking task.
 """
 from __future__ import annotations
 
@@ -95,7 +99,9 @@ class GradientBoostedTreesLearner(Learner):
         max_nodes = (hp.max_num_nodes if hp.growing_strategy == "BEST_FIRST_GLOBAL"
                      else 2 ** (hp.max_depth + 1))
         oblique = hp.split_axis == "SPARSE_OBLIQUE"
+        n_num = int((~td.binned.is_cat).sum())
         forest = empty_forest(hp.num_trees * K, max_nodes, 1,
+                              oblique_dims=n_num if oblique else 0,
                               feature_names=td.features)
         init = loss.init_pred(y, w)
         forest.init_pred = np.zeros(K, np.float32)
@@ -185,7 +191,8 @@ class GradientBoostedTreesLearner(Learner):
                     with trace.span("gbt/tree", tree=t, iteration=it):
                         node_of = grow_tree(forest, t, sub_td.binned,
                                             sub_td.X_raw, stats, bag > 0,
-                                            leaf_fn, gp, rng)
+                                            leaf_fn, gp, rng,
+                                            sub_td.num_lo, sub_td.num_hi)
                     vals = forest.leaf_value[t, np.maximum(node_of, 0), 0]
                     upd = np.where(node_of >= 0, vals, 0.0)
                     if hp.subsample < 1.0:  # OOB examples still move (predict path)
@@ -261,6 +268,8 @@ def _one_tree(forest: Forest, t: int) -> Forest:
         left_child=forest.left_child[t:t + 1],
         leaf_value=forest.leaf_value[t:t + 1], n_nodes=forest.n_nodes[t:t + 1],
         split_gain=forest.split_gain[t:t + 1],
+        obl_weights=None if forest.obl_weights is None else forest.obl_weights[t:t + 1],
+        obl_features=None if forest.obl_features is None else forest.obl_features[t:t + 1],
         tree_class=forest.tree_class[t:t + 1])
 
 

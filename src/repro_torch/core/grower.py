@@ -34,7 +34,13 @@ device "auto" is the cuda backend, so a Random Forest grows there tree by
 tree, every histogram built by the CUDA kernel, as the reference grows one
 on a TPU.
 
-Not ported yet: sparse-oblique splits (raise).
+Sparse-oblique splits (``SplitterParams.oblique`` with the learner's
+``num_lo``/``num_hi``) add a projection pass over the raw numerical columns
+per frontier node (``splitters.oblique_splits``, host numpy on every
+device, as in the reference); the axis-aligned candidates of the same nodes
+still go through the histogram backend. The device engine cannot run them,
+so oblique configurations resolve to "batched", and the lockstep path
+(which consumes no sequential rng) does not take them.
 
 The grower owns node allocation in the Forest SoA and the per-example
 ``node_of`` routing; leaf values come from a caller-provided ``leaf_fn``
@@ -68,6 +74,7 @@ from repro_torch.core.splitters import (
     best_splits,
     best_splits_gathered,
     build_histogram,
+    oblique_splits,
 )
 from repro_torch.core.tree import Forest
 from repro_torch.obs import trace
@@ -99,6 +106,13 @@ def _set_split(forest: Forest, t: int, node: int, split: Split,
         # recorded for the SUM_SCORE structural importance (DESIGN.md §8);
         # never read back by training, so it cannot perturb growth
         forest.split_gain[t, node] = max(float(split.gain), 0.0)
+    if split.obl_features is not None:
+        forest.feature[t, node] = -2
+        k = min(len(split.obl_features), forest.obl_weights.shape[-1])
+        forest.obl_features[t, node, :k] = split.obl_features[:k]
+        forest.obl_weights[t, node, :k] = split.obl_weights[:k]
+        forest.threshold[t, node] = split.threshold
+        return
     forest.feature[t, node] = split.feature
     if split.cat_right is not None:
         for c in split.cat_right:
@@ -152,14 +166,6 @@ def resolve_engine(params: GrowthParams, binned: BinnedFeatures | None = None,
     return ("batched", reason) if reason else ("device", None)
 
 
-def _check_ported(params: GrowthParams) -> None:
-    if params.splitter.oblique:
-        raise YdfError(
-            "split_axis='SPARSE_OBLIQUE' (and so the benchmark_rank1 "
-            "template) is not ported yet: the port's Forest carries no "
-            "oblique nodes. Solution: use split_axis='AXIS_ALIGNED'.")
-
-
 def grow_tree(forest: Forest, t: int, binned: BinnedFeatures, X_raw: np.ndarray,
               stats: np.ndarray, active: np.ndarray,
               leaf_fn: Callable[[np.ndarray], np.ndarray],
@@ -169,20 +175,20 @@ def grow_tree(forest: Forest, t: int, binned: BinnedFeatures, X_raw: np.ndarray,
     """Grow tree `t` in place. `active`: (N,) bool/float example weights > 0
     mask; `stats` must already include bagging weights. Returns the final
     ``node_of`` array ((N,) int32, -1 for inactive examples) so boosting can
-    read leaf assignments without re-traversal. ``num_lo``/``num_hi`` (the
-    min-max bounds of sparse-oblique projections) are accepted for the
-    reference's signature; oblique splits raise."""
-    _check_ported(params)
+    read leaf assignments without re-traversal. ``num_lo``/``num_hi`` are
+    the min-max bounds of the numerical columns that sparse-oblique
+    projections normalize by; without them no projection is tried."""
     node_of = np.where(active, 0, -1).astype(np.int32)
     root_stats = stats[active].sum(0)
     forest.leaf_value[t, 0] = leaf_fn(root_stats)
     forest.n_nodes[t] = 1
     best_first = params.growing_strategy == "BEST_FIRST_GLOBAL"
-    engine, _ = resolve_engine(params, binned)
+    engine, _ = resolve_engine(params, binned,
+                               params.splitter.oblique and num_lo is not None)
     if engine == "oracle":
         fn = _grow_best_first_oracle if best_first else _grow_level_wise_oracle
         depth = fn(forest, t, binned, X_raw, stats, node_of, params, rng,
-                   leaf_fn)
+                   leaf_fn, num_lo, num_hi)
     elif engine == "device":
         return grow_trees_device(forest, [t], binned, [stats], [active],
                                  leaf_fn, params)[0]
@@ -190,7 +196,7 @@ def grow_tree(forest: Forest, t: int, binned: BinnedFeatures, X_raw: np.ndarray,
         backend = resolve_backend(params.histogram_backend, params.device)
         fn = _grow_best_first_batched if best_first else _grow_level_wise_batched
         depth = fn(forest, t, binned, X_raw, stats, node_of, params, rng,
-                   leaf_fn, backend)
+                   leaf_fn, num_lo, num_hi, backend)
     forest.depth = max(forest.depth, depth)
     return node_of
 
@@ -223,8 +229,8 @@ def grow_trees(forest: Forest, ts, binned: BinnedFeatures, X_raw: np.ndarray,
     blocking is purely an execution choice. ``block`` is the NOMINAL block
     width (e.g. tree_parallelism): the device engine pads a short final
     block up to it. Returns per-tree final routing, (len(ts), N) int32."""
-    _check_ported(params)
-    engine, _ = resolve_engine(params, binned)
+    engine, _ = resolve_engine(params, binned,
+                               params.splitter.oblique and num_lo is not None)
     if engine == "device" and params.growing_strategy == "LOCAL":
         for b, t in enumerate(ts):
             forest.leaf_value[t, 0] = leaf_fn(stats_list[b][actives[b]].sum(0))
@@ -249,6 +255,26 @@ def grow_trees(forest: Forest, ts, binned: BinnedFeatures, X_raw: np.ndarray,
         for b, t in enumerate(ts)])
 
 
+def _node_best_split(hist_slice, binned, sp, rng, X_raw, stats, node_of_c,
+                     n_slots, num_lo, num_hi, mask=None,
+                     simple=False) -> list[Split]:
+    splits = best_splits(hist_slice, binned, sp, rng, feature_mask=mask,
+                         simple=simple)
+    if sp.oblique and num_lo is not None:
+        Fn = (~binned.is_cat).sum()
+        if Fn:
+            num_cols = np.where(~binned.is_cat)[0]
+            obl = oblique_splits(X_raw[:, num_cols], num_lo, num_hi, stats,
+                                 node_of_c, n_slots, sp, rng)
+            for i in range(n_slots):
+                if obl[i].gain > splits[i].gain:
+                    o = obl[i]
+                    # remap feature indices back to full-matrix columns
+                    o.obl_features = num_cols[o.obl_features].astype(np.int32)
+                    splits[i] = o
+    return splits
+
+
 # =====================================================================
 # Batched-frontier engine (the fast path)
 # =====================================================================
@@ -259,7 +285,8 @@ _HIST_CACHE_BUDGET = 1 << 25  # 32M f64 = 256 MB
 
 
 def _grow_level_wise_batched(forest, t, binned, X_raw, stats, node_of, params,
-                             rng, leaf_fn, backend: HistogramBackend) -> int:
+                             rng, leaf_fn, num_lo, num_hi,
+                             backend: HistogramBackend) -> int:
     sp = params.splitter
     F = binned.n_features
     S = stats.shape[1]
@@ -323,7 +350,9 @@ def _grow_level_wise_batched(forest, t, binned, X_raw, stats, node_of, params,
             hist = hist64.astype(np.float32)
         with trace.span("grower/gain_scan", level=level, frontier=n_front):
             mask = _candidate_mask(frontier, t, F, params, rng)
-            splits = best_splits(hist, binned, sp, rng, feature_mask=mask)
+            splits = _node_best_split(hist, binned, sp, rng, X_raw, stats,
+                                      node_of_c, n_front, num_lo, num_hi,
+                                      mask)
         # -- allocate children (frontier order, shared node budget)
         left_of = np.full(n_front, -1, np.int32)
         for i, node in enumerate(frontier):
@@ -341,14 +370,17 @@ def _grow_level_wise_batched(forest, t, binned, X_raw, stats, node_of, params,
         # -- one vectorized apply_split pass over every routed example:
         # axis-aligned conditions collapse to a per-slot (256,) go-right
         # lookup over bin codes (b >= split_bin for numerical, set membership
-        # for categorical).
+        # for categorical); oblique slots fall back to per-slot projection.
         with trace.span("grower/routing", level=level,
                         splits=len(split_slots)):
             feat = np.array([s.feature for s in splits], np.int32)
             table = np.zeros((n_front, 256), bool)
+            obl_slots = []
             for i in split_slots:
                 s = splits[i]
-                if s.cat_right is not None:
+                if s.obl_features is not None:
+                    obl_slots.append(i)
+                elif s.cat_right is not None:
                     table[i, s.cat_right] = True
                 else:
                     table[i, s.split_bin:] = True
@@ -356,6 +388,9 @@ def _grow_level_wise_batched(forest, t, binned, X_raw, stats, node_of, params,
                           & (left_of[np.maximum(node_of_c, 0)] >= 0))[0]
             sl = node_of_c[ex]
             go = table[sl, codes[ex, np.maximum(feat[sl], 0)]]
+            for i in obl_slots:
+                m = sl == i
+                go[m] = apply_split(splits[i], binned, X_raw, ex[m])
             node_of[ex] = left_of[sl] + go
         # -- all child leaf stats in one flattened bincount over node_of
         with trace.span("grower/leaf_stats", level=level,
@@ -375,11 +410,12 @@ def _grow_level_wise_batched(forest, t, binned, X_raw, stats, node_of, params,
         # consumes no randomness the pruning could shift: the per-node
         # feature-sampling mask (one rng.choice per frontier node — unless
         # masks are KEYED by (tree, node), which pruning cannot perturb),
-        # RANDOM categorical trials (per-level draws that the oracle still
-        # makes for a frontier of unsplittable nodes).
+        # RANDOM categorical trials and oblique projections (per-level draws
+        # that the oracle still makes for a frontier of unsplittable nodes).
         prune = ((sp.num_candidate_ratio >= 1.0
                   or params.feature_sampling == "keyed")
-                 and sp.categorical_algorithm != "RANDOM")
+                 and sp.categorical_algorithm != "RANDOM"
+                 and not (sp.oblique and num_lo is not None))
         keep = csum[:, -1] >= 2 * sp.min_examples if prune else \
             np.ones(n_child, bool)
         new_frontier = []
@@ -411,7 +447,8 @@ def _grow_level_wise_batched(forest, t, binned, X_raw, stats, node_of, params,
 
 
 def _grow_best_first_batched(forest, t, binned, X_raw, stats, node_of, params,
-                             rng, leaf_fn, backend: HistogramBackend) -> int:
+                             rng, leaf_fn, num_lo, num_hi,
+                             backend: HistogramBackend) -> int:
     """Leaf-wise growth with the parent-minus-sibling subtraction trick.
 
     The heap holds (-gain, counter, node, depth, Split); a side store keeps,
@@ -422,6 +459,8 @@ def _grow_best_first_batched(forest, t, binned, X_raw, stats, node_of, params,
     """
     sp = params.splitter
     F = binned.n_features
+    N = binned.codes.shape[0]
+    oblique = sp.oblique and num_lo is not None
 
     def build(idx: np.ndarray) -> np.ndarray:
         with trace.span("grower/hist_build", examples=len(idx)):
@@ -431,8 +470,13 @@ def _grow_best_first_batched(forest, t, binned, X_raw, stats, node_of, params,
     def eval_node(node: int, idx: np.ndarray, hist64: np.ndarray) -> Split:
         with trace.span("grower/gain_scan", node=node):
             m = _candidate_mask([node], t, F, params, rng)
-            return best_splits(hist64.astype(np.float32), binned, sp, rng,
-                               feature_mask=m)[0]
+            node_of_c = None
+            if oblique:  # oblique projections scan raw columns, not hists
+                node_of_c = np.full(N, -1, np.int32)
+                node_of_c[idx] = 0
+            return _node_best_split(hist64.astype(np.float32), binned, sp,
+                                    rng, X_raw, stats, node_of_c, 1, num_lo,
+                                    num_hi, m)[0]
 
     heap: list = []
     counter = 0
@@ -645,7 +689,7 @@ def _grow_level_wise_lockstep(forest, ts, binned, stats_list, node_of,
 # =====================================================================
 
 def _grow_level_wise_oracle(forest, t, binned, X_raw, stats, node_of, params,
-                            rng, leaf_fn) -> int:
+                            rng, leaf_fn, num_lo, num_hi) -> int:
     sp = params.splitter
     F = binned.n_features
     frontier = [0]
@@ -661,8 +705,9 @@ def _grow_level_wise_oracle(forest, t, binned, X_raw, stats, node_of, params,
         hist = build_histogram(binned.codes, stats, node_of_c, len(frontier),
                                backend="simple")
         mask = _candidate_mask(frontier, t, F, params, rng)
-        splits = best_splits(hist, binned, sp, rng, feature_mask=mask,
-                             simple=True)
+        splits = _node_best_split(hist, binned, sp, rng, X_raw, stats,
+                                  node_of_c, len(frontier), num_lo, num_hi,
+                                  mask, simple=True)
         new_frontier = []
         for i, node in enumerate(frontier):
             s = splits[i]
@@ -685,7 +730,7 @@ def _grow_level_wise_oracle(forest, t, binned, X_raw, stats, node_of, params,
 
 
 def _grow_best_first_oracle(forest, t, binned, X_raw, stats, node_of, params,
-                            rng, leaf_fn) -> int:
+                            rng, leaf_fn, num_lo, num_hi) -> int:
     """Leaf-wise growth. Heap holds (-gain, node, depth, Split)."""
     sp = params.splitter
     F = binned.n_features
@@ -696,8 +741,8 @@ def _grow_best_first_oracle(forest, t, binned, X_raw, stats, node_of, params,
         hist = build_histogram(binned.codes, stats, node_of_c, 1,
                                backend="simple")
         m = _candidate_mask([node], t, F, params, rng)
-        return best_splits(hist, binned, sp, rng, feature_mask=m,
-                           simple=True)[0]
+        return _node_best_split(hist, binned, sp, rng, X_raw, stats, node_of_c,
+                                1, num_lo, num_hi, m, simple=True)[0]
 
     heap: list = []
     counter = 0

@@ -52,6 +52,8 @@ class TrainData:
     w: np.ndarray              # example weights
     n_classes: int
     classes: list[str] | None
+    num_lo: np.ndarray         # per numerical feature: min (oblique min-max)
+    num_hi: np.ndarray
 
 
 def _as_vertical(dataset, spec: DataSpec | None = None) -> VerticalDataset:
@@ -126,9 +128,17 @@ def prepare_train_data(learner, dataset, *, features: list[str] | None = None,
     with trace.span("grower/binning", rows=ds.n_rows, features=len(feats)):
         binned = bin_features(ds, feats, max_bins=max_bins)
     X_raw = raw_matrix(ds, feats)
+    num_cols = np.where(~binned.is_cat)[0]
+    if len(num_cols) and ds.n_rows:
+        num_lo = X_raw[:, num_cols].min(0).astype(np.float32)
+        num_hi = X_raw[:, num_cols].max(0).astype(np.float32)
+    else:
+        num_lo = np.zeros(len(num_cols), np.float32)
+        num_hi = np.ones(len(num_cols), np.float32)
     w = np.ones(ds.n_rows, np.float64)
     return TrainData(ds=ds, features=feats, binned=binned, X_raw=X_raw, y=y,
-                     w=w, n_classes=n_classes, classes=classes)
+                     w=w, n_classes=n_classes, classes=classes,
+                     num_lo=num_lo, num_hi=num_hi)
 
 
 def extract_validation(n: int, ratio: float, seed: int) -> tuple[np.ndarray, np.ndarray]:
@@ -263,7 +273,7 @@ class DecisionForestModel(Model):
 # the Forest arrays a saved model carries (those that are not None)
 _FOREST_ARRAYS = ("feature", "threshold", "cat_mask", "left_child",
                   "leaf_value", "n_nodes", "tree_class", "init_pred",
-                  "split_bin", "split_gain")
+                  "split_bin", "split_gain", "obl_weights", "obl_features")
 _KIND_OF = {"GradientBoostedTreesModel": "gbt", "RandomForestModel": "rf",
             "CartModel": "cart"}
 

@@ -19,8 +19,10 @@ trees one by one, and the block stays the unit), so a resumed
 blocks. The per-tree rng streams are re-derived from (seed, tree), not
 stored.
 
-Not ported yet: sparse-oblique splits (``split_axis="SPARSE_OBLIQUE"`` and
-the benchmark_rank1 template raise).
+``split_axis="SPARSE_OBLIQUE"`` (and the ``benchmark_rank1`` template,
+which also sets RANDOM categorical splits) draws projections from each
+tree's rng stream, so those trees grow one by one on every device (no
+lockstep block), through the batched engine.
 """
 from __future__ import annotations
 
@@ -112,7 +114,9 @@ class RandomForestLearner(Learner):
                           device=str(device))
         engine_used, fallback = resolve_engine(gp, td.binned, oblique)
         block = max(1, int(hp.tree_parallelism))
+        n_num = int((~td.binned.is_cat).sum())
         forest = empty_forest(hp.num_trees, hp.max_num_nodes, out_dim,
+                              oblique_dims=n_num if oblique else 0,
                               feature_names=td.features)
 
         oob_sum = np.zeros((N, out_dim), np.float64)
@@ -155,7 +159,8 @@ class RandomForestLearner(Learner):
                 with trace.span("rf/block", first_tree=ts[0], trees=len(ts)):
                     grow_trees(forest, ts, td.binned, td.X_raw, stats_b,
                                [c > 0 for c in counts_b], leaf_fn, gp,
-                               [tree_rng[t] for t in ts], block=block)
+                               [tree_rng[t] for t in ts], td.num_lo,
+                               td.num_hi, block=block)
                 if hp.compute_oob and hp.bootstrap:
                     for bi, t in enumerate(ts):
                         oob = counts_b[bi] == 0

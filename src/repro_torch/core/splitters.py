@@ -11,9 +11,14 @@ engines (core/grower.py) scan the histograms that a backend
 
 Feature-type modules: numerical (ordered-bin scan), categorical CART
 (Fisher-ordered prefix scan), categorical RANDOM (random-set projections,
-Breiman), one-hot (single category vs rest), and the gathered scan of the
-Random Forest lockstep path (``best_splits_gathered``). Not ported yet:
-sparse oblique projections and the exact in-sorting splitter.
+Breiman), one-hot (single category vs rest), sparse oblique numerical
+projections (Tomita et al.), and the gathered scan of the Random Forest
+lockstep path (``best_splits_gathered``). The exact in-sorting splitter is
+the reference oracle (§2.3).
+
+Sparse-oblique projections build their histograms with numpy
+(``build_histogram(..., backend=None)``) on every device, as the
+reference does: they scan raw columns, which stay on the host.
 """
 from __future__ import annotations
 
@@ -66,10 +71,12 @@ class Split:
     split_bin: int = 0                     # numerical: codes >= split_bin go right
     threshold: float = 0.0                 # raw-value threshold
     cat_right: np.ndarray | None = None    # categorical: codes going right
+    obl_features: np.ndarray | None = None
+    obl_weights: np.ndarray | None = None
 
     @property
     def valid(self) -> bool:
-        return self.feature != -1
+        return self.feature != -1 or self.obl_features is not None
 
 
 # =====================================================================
@@ -458,14 +465,99 @@ def _cat_random(f, hf, parent, parent_score, params, rng, gains, cat_sets):
 
 
 # =====================================================================
+# Sparse oblique projections (Tomita et al. 2020; benchmark_rank1 template)
+# =====================================================================
+
+def oblique_splits(Xn: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                   stats: np.ndarray, node_of: np.ndarray, n_nodes: int,
+                   params: SplitterParams, rng: np.random.Generator) -> list[Split]:
+    """Xn: (N, Fn) numerical features; lo/hi: (Fn,) min-max normalization
+    bounds. Projections use +-1 weights on a sparse feature subset; projected
+    values are linearly binned per projection and scanned like a numerical
+    feature. Returns one (possibly invalid) Split per node."""
+    N, Fn = Xn.shape
+    if Fn == 0:
+        return [Split() for _ in range(n_nodes)]
+    n_proj = max(1, int(round(Fn ** params.oblique_num_projections_exponent)))
+    scale = 1.0 / np.maximum(hi - lo, 1e-12)
+    B = params.oblique_bins
+    out = [Split() for _ in range(n_nodes)]
+    for _ in range(n_proj):
+        nnz = max(1, (rng.random(Fn) < params.oblique_density).sum())
+        feats = rng.choice(Fn, size=min(nnz, Fn), replace=False)
+        w = rng.choice(np.array([-1.0, 1.0]), size=len(feats))
+        proj = ((Xn[:, feats] - lo[feats]) * scale[feats]) @ w  # (N,)
+        pmin, pmax = float(proj.min()), float(proj.max())
+        if pmax - pmin < 1e-12:
+            continue
+        codes = np.minimum(((proj - pmin) * (B / (pmax - pmin))).astype(np.int64),
+                           B - 1).astype(np.uint8)
+        hist = build_histogram(codes[:, None], stats, node_of, n_nodes, B)
+        kind, l2 = params.stat_kind, params.l2
+        h = hist[:, 0]                                  # (n, B, S)
+        parent = h.sum(1)
+        ps = _score(parent, kind, l2)
+        cum = np.cumsum(h, axis=1)[:, :-1]
+        right = parent[:, None, :] - cum
+        g = _score(cum, kind, l2) + _score(right, kind, l2) - ps[:, None]
+        ok = ((_counts(cum, kind) >= params.min_examples)
+              & (_counts(right, kind) >= params.min_examples))
+        g = np.where(ok, g, NEG_INF)
+        if g.shape[1] == 0:
+            continue
+        bi = np.argmax(g, axis=1)
+        gv = np.take_along_axis(g, bi[:, None], 1)[:, 0]
+        for i in range(n_nodes):
+            if gv[i] > max(out[i].gain, params.min_gain):
+                thr = pmin + (int(bi[i]) + 1) * (pmax - pmin) / B
+                # fold min-max normalization into weights/threshold:
+                w_raw = w * scale[feats]
+                t_raw = thr + float((lo[feats] * scale[feats]) @ w)
+                out[i] = Split(gain=float(gv[i]), feature=-2,
+                               obl_features=feats.astype(np.int32),
+                               obl_weights=w_raw.astype(np.float32),
+                               threshold=t_raw)
+    return out
+
+
+# =====================================================================
+# Exact in-sorting splitter — the reference oracle (paper §2.3)
+# =====================================================================
+
+def exact_best_split_numerical(x: np.ndarray, stats: np.ndarray,
+                               params: SplitterParams) -> tuple[float, float]:
+    """Sort values, scan every midpoint. Returns (gain, threshold)."""
+    order = np.argsort(x, kind="stable")
+    xs, ss = x[order], stats[order]
+    kind, l2 = params.stat_kind, params.l2
+    parent = ss.sum(0)
+    ps = _score(parent, kind, l2)
+    cum = np.cumsum(ss, axis=0)[:-1]
+    right = parent[None] - cum
+    g = _score(cum, kind, l2) + _score(right, kind, l2) - ps
+    ok = ((_counts(cum, kind) >= params.min_examples)
+          & (_counts(right, kind) >= params.min_examples)
+          & (xs[:-1] != xs[1:]))  # can't split between equal values
+    g = np.where(ok, g, NEG_INF)
+    if len(g) == 0:
+        return NEG_INF, 0.0
+    i = int(np.argmax(g))
+    thr = 0.5 * (xs[i] + xs[i + 1])
+    return float(g[i]), float(thr)
+
+
+# =====================================================================
 # Partition application
 # =====================================================================
 
 def apply_split(split: Split, binned: BinnedFeatures, X_raw: np.ndarray,
                 idx: np.ndarray) -> np.ndarray:
-    """go-right decision for examples `idx` under an axis-aligned split.
-    X_raw: (N, F) raw-valued matrix (same column order as binned), which
+    """go-right decision for examples `idx`. X_raw: (N, F) raw-valued matrix
+    (same column order as binned; categorical columns hold codes), which
     only sparse-oblique conditions read."""
+    if split.obl_features is not None:
+        proj = X_raw[np.ix_(idx, split.obl_features)] @ split.obl_weights
+        return proj >= split.threshold
     codes = binned.codes[idx, split.feature]
     if split.cat_right is not None:
         return np.isin(codes, split.cat_right)

@@ -2,17 +2,26 @@
 
 The same layout as ``repro.core.tree``: per tree, arrays of capacity
 ``max_nodes``; children are allocated in pairs so ``right = left_child + 1``;
-leaves have ``left_child == -1``. Two condition kinds are served:
+leaves have ``left_child == -1``. Three condition kinds (paper §3.8):
 
   * numerical axis-aligned:  x[f] >= threshold
   * categorical set:         bit code(x[f]) of the node's 256-bit cat_mask
+  * sparse oblique:          sum_k w_k * x[f_k] >= threshold (feature == -2;
+                             Tomita et al.), the weights and columns in
+                             ``obl_weights`` / ``obl_features``, (T, M, P)
 
-(sparse oblique conditions are not carried over; ``convert`` refuses them).
+An oblique node's projection is the float32 sum over all P slots (the
+padding's weight 0 on column 0 included) in numpy's pairwise order, as the
+reference's vectorized engine computes ``(w * xs).sum(-1)``;
+``predict_naive`` takes ``np.dot`` as the reference's does, whose BLAS order
+may differ in the last bit, and so may disagree at a near-tie with the
+threshold (ROADMAP C).
 
 The numpy engines here (``predict_naive``, ``compile_predict_raw``) and the
 aggregation heads are host code, as in the reference. ``pack_by_depth``
 builds the depth-packed layout the CUDA traversal kernel reads
-(kernels/forest_infer), array for array equal to the reference's.
+(kernels/forest_infer), array for array equal to the reference's, plus the
+port's oblique tables in slot order.
 
 Categorical codes follow numpy's float32 -> int64 cast as the reference's
 CPU engines see it on x86: NaN, +-inf and |x| >= 2^63 cast to INT64_MIN,
@@ -34,7 +43,7 @@ _TWO_63 = np.float32(2.0 ** 63)
 @dataclass
 class Forest:
     """A stack of T trees with capacity M nodes each."""
-    feature: np.ndarray        # (T, M) int32; -1 = leaf
+    feature: np.ndarray        # (T, M) int32; -1 = leaf, -2 = oblique
     threshold: np.ndarray      # (T, M) float32 (raw-value domain)
     cat_mask: np.ndarray       # (T, M, MASK_WORDS) uint32; bit set -> go right
     left_child: np.ndarray     # (T, M) int32; -1 = leaf
@@ -50,6 +59,9 @@ class Forest:
     # for structural importances
     split_bin: np.ndarray | None = None   # (T, M) uint16
     split_gain: np.ndarray | None = None  # (T, M) float32
+    # sparse-oblique conditions (None when the forest has none)
+    obl_weights: np.ndarray | None = None   # (T, M, P) float32
+    obl_features: np.ndarray | None = None  # (T, M, P) int32
 
     @property
     def n_trees(self) -> int:
@@ -59,6 +71,12 @@ class Forest:
     def max_nodes(self) -> int:
         return self.feature.shape[1]
 
+    def has_oblique(self) -> bool:
+        """True when any node carries a sparse-oblique condition (the
+        single source of truth for engine-compatibility checks)."""
+        return bool(self.obl_weights is not None and self.obl_weights.shape[-1]
+                    and (self.feature == -2).any())
+
     def truncated(self, n_trees: int) -> "Forest":
         sl = lambda a: None if a is None else a[:n_trees]
         return dataclasses.replace(
@@ -66,6 +84,8 @@ class Forest:
             split_bin=sl(self.split_bin), cat_mask=sl(self.cat_mask),
             left_child=sl(self.left_child), leaf_value=sl(self.leaf_value),
             n_nodes=sl(self.n_nodes), split_gain=sl(self.split_gain),
+            obl_weights=sl(self.obl_weights),
+            obl_features=sl(self.obl_features),
             tree_class=sl(self.tree_class))
 
     # -------------------------------------------------- structure stats
@@ -106,20 +126,34 @@ class Forest:
 
         t_idx, n_idx = np.nonzero(internal)
         feats = self.feature[t_idx, n_idx]
-        if (feats == -2).any():
-            from repro_torch.core.api import YdfError
-            raise YdfError(
-                "The forest has sparse-oblique conditions (feature == -2), "
-                "which the port does not carry yet (ROADMAP A3).")
-        keep = feats >= 0
-        t_ax, n_ax, f_ax = t_idx[keep], n_idx[keep], feats[keep]
-        ok = f_ax < F
+        # oblique nodes (feature == -2) reference several columns each
+        if (feats == -2).any() and self.obl_features is not None:
+            ax = feats >= 0
+            obl = feats == -2
+            w = self.obl_weights[t_idx[obl], n_idx[obl]]       # (n_obl, P)
+            fo = self.obl_features[t_idx[obl], n_idx[obl]]
+            live = w != 0.0
+            t_ax = np.concatenate([t_idx[ax], np.repeat(t_idx[obl], live.sum(1))])
+            n_ax = np.concatenate([n_idx[ax], np.repeat(n_idx[obl], live.sum(1))])
+            f_ax = np.concatenate([feats[ax], fo[live]])
+        else:
+            keep = feats >= 0
+            t_ax, n_ax, f_ax = t_idx[keep], n_idx[keep], feats[keep]
+        ok = (f_ax >= 0) & (f_ax < F)
         t_ax, n_ax, f_ax = t_ax[ok], n_ax[ok], f_ax[ok]
 
         out = {"NUM_NODES": table(np.bincount(f_ax, minlength=F))}
         roots = self.feature[:, 0]
-        out["NUM_AS_ROOT"] = table(np.bincount(
-            roots[(roots >= 0) & (roots < F)], minlength=F).astype(np.float64))
+        root_counts = np.bincount(
+            roots[(roots >= 0) & (roots < F)], minlength=F).astype(np.float64)
+        if (roots == -2).any() and self.obl_features is not None:
+            # oblique roots credit every feature they project over, matching
+            # the NUM_NODES / min-depth expansion above
+            ow = self.obl_weights[roots == -2, 0]
+            of = self.obl_features[roots == -2, 0]
+            fr = of[ow != 0.0]
+            root_counts += np.bincount(fr[(fr >= 0) & (fr < F)], minlength=F)
+        out["NUM_AS_ROOT"] = table(root_counts)
         sg = self.split_gain
         if sg is not None and len(f_ax) and sg[t_ax, n_ax].any():
             out["SUM_SCORE"] = table(np.bincount(
@@ -138,6 +172,7 @@ class Forest:
 
 
 def empty_forest(n_trees: int, max_nodes: int, out_dim: int, *,
+                 oblique_dims: int = 0,
                  feature_names: list[str] | None = None) -> Forest:
     T, M = n_trees, max_nodes
     return Forest(
@@ -154,6 +189,10 @@ def empty_forest(n_trees: int, max_nodes: int, out_dim: int, *,
         feature_names=list(feature_names or []),
         split_bin=np.zeros((T, M), np.uint16),
         split_gain=np.zeros((T, M), np.float32),
+        obl_weights=(np.zeros((T, M, oblique_dims), np.float32)
+                     if oblique_dims else None),
+        obl_features=(np.zeros((T, M, oblique_dims), np.int32)
+                      if oblique_dims else None),
     )
 
 
@@ -215,7 +254,9 @@ def cat_code(x) -> np.ndarray:
 def eval_node_conditions(forest: Forest, X: np.ndarray, t: np.ndarray,
                          node: np.ndarray) -> np.ndarray:
     """Go-right decisions of nodes ``(t, node)`` (broadcast (N, T)) for rows
-    ``X`` ((N, 1, F) or broadcastable); False at leaves."""
+    ``X`` ((N, 1, F) or broadcastable); False at leaves. An oblique node's
+    projection sums all P products in numpy's pairwise order (the
+    reference's ``(w * xs).sum(-1)``)."""
     f = forest.feature[t, node]                       # (N, T)
     x = np.take_along_axis(X, np.maximum(f, 0)[..., None], axis=-1)[..., 0]
     go = x >= forest.threshold[t, node]
@@ -224,6 +265,13 @@ def eval_node_conditions(forest: Forest, X: np.ndarray, t: np.ndarray,
     word = np.take_along_axis(cat, (code // 32)[..., None], axis=-1)[..., 0]
     bit = (word >> (code % 32).astype(np.uint32)) & 1
     go = np.where(cat.any(axis=-1), bit.astype(bool), go)
+    if forest.obl_weights is not None and forest.obl_weights.shape[-1]:
+        w = forest.obl_weights[t, node]               # (N, T, P)
+        fo = forest.obl_features[t, node]             # (N, T, P)
+        xs = np.take_along_axis(np.broadcast_to(X, fo.shape[:2] + X.shape[-1:]),
+                                fo, axis=-1)
+        proj = (w * xs).sum(-1)
+        go = np.where(f == -2, proj >= forest.threshold[t, node], go)
     return np.where(f == -1, False, go)
 
 
@@ -248,19 +296,25 @@ def predict_naive(forest: Forest, X: np.ndarray) -> np.ndarray:
 
     The node tables and rows are read as Python lists (float32 values widen
     to float exactly, so every comparison is the float32 one); the leaf
-    values are gathered once at the end."""
+    values are gathered once at the end. An oblique node projects with
+    ``np.dot`` over the float32 row, as the reference's does."""
     N, T = X.shape[0], forest.n_trees
     left, feature = forest.left_child.tolist(), forest.feature.tolist()
     threshold = forest.threshold.tolist()
     is_cat = forest.cat_mask.any(axis=-1).tolist()
+    X32 = np.asarray(X, np.float32)
     leaf = np.zeros((N, T), np.int64)
-    for n, x in enumerate(np.asarray(X, np.float32).tolist()):
+    for n, x in enumerate(X32.tolist()):
         for t in range(T):
             lc, ft, th, ic = left[t], feature[t], threshold[t], is_cat[t]
             node = 0
             while lc[node] >= 0:
                 f = ft[node]
-                if ic[node]:
+                if f == -2:
+                    proj = float(np.dot(forest.obl_weights[t, node],
+                                        X32[n, forest.obl_features[t, node]]))
+                    go = proj >= forest.threshold[t, node]
+                elif ic[node]:
                     code = int(cat_code(x[f]))
                     go = bool((forest.cat_mask[t, node, code // 32]
                                >> (code % 32)) & 1)
@@ -276,8 +330,11 @@ def compile_predict_raw(forest: Forest):
     (the "vectorized" engine, paper §5.1): node tables flattened once and
     trimmed to the live node capacity, gathers into reused scratch buffers,
     one 32-bit mask word gathered per categorical test, and the categorical
-    path dropped when the forest has none.
+    path dropped when the forest has none. An oblique forest keeps the
+    generic lockstep traversal, as the reference's does.
     Returns ``run(X: (N, F) float32) -> (N, T, leaf_dim) float32``."""
+    if forest.has_oblique():
+        return lambda X: predict_raw(forest, X)
     T = forest.n_trees
     O = forest.leaf_value.shape[-1]
     if T == 0:
@@ -360,6 +417,10 @@ class PackedForest:
                              # slot inv_order[t] (flat over (B, TB))
     n_trees: int             # original T (packed slots beyond are padding)
     out_dim: int             # trailing leaf dim
+    # the port's oblique tables in slot order, (B, TB, M, P); None when the
+    # forest has none (the reference's pack carries no oblique fields)
+    obl_weights: np.ndarray | None = None
+    obl_features: np.ndarray | None = None
 
     @property
     def n_blocks(self) -> int:
@@ -414,13 +475,16 @@ def pack_by_depth(forest: Forest, *, trees_per_block: int | None = None,
         block_depth[:, 0] = np.maximum(sorted_d.reshape(B, TB).max(axis=1), 1)
     inv_order = np.empty(T, np.int32)
     inv_order[order] = np.arange(T, dtype=np.int32)
+    obl = forest.has_oblique()
     return PackedForest(feature=take(forest.feature, -1),
                         threshold=take(forest.threshold),
                         cat_mask=take(forest.cat_mask),
                         left_child=take(forest.left_child, -1),
                         leaf_value=take(forest.leaf_value),
                         block_depth=block_depth, inv_order=inv_order,
-                        n_trees=T, out_dim=O)
+                        n_trees=T, out_dim=O,
+                        obl_weights=take(forest.obl_weights) if obl else None,
+                        obl_features=take(forest.obl_features) if obl else None)
 
 
 # ------------------------------------------------------------ aggregation

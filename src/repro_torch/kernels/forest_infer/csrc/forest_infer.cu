@@ -7,7 +7,10 @@
 // at most block_depth[b] rounds, node = left_child + go while
 // left_child >= 0, where a numerical node goes right when x >= threshold
 // and a node with a non-empty 256-bit category mask goes right when the
-// code's bit is set. The output is the final node's leaf value, (N, S, O)
+// code's bit is set. It also serves sparse-oblique nodes, which the TPU
+// kernel refuses (the reference serves those forests on the host): such a
+// node goes right when its projection, summed as traverse.cuh says, is
+// >= threshold. The output is the final node's leaf value, (N, S, O)
 // float32 in packed slot order, or, given slot_col (the tree of each slot,
 // -1 for padding), (N, T, O) in tree order, so the caller needs no
 // separate take over the output.
@@ -48,34 +51,46 @@
 
 namespace {
 
-template <bool kStaged>
+template <bool kStaged, bool kOblique>
 __global__ void __launch_bounds__(forest_traverse::kThreads)
 forest_infer_tiled_kernel(forest_traverse::Args a) {
-  forest_traverse::run<kStaged>(a);
+  forest_traverse::run<kStaged, kOblique>(a);
 }
 
-bool opted[2] = {false, false};
+// [staged][oblique]: the oblique branch only where P > 0
+void (*const kKernels[2][2])(forest_traverse::Args) = {
+    {forest_infer_tiled_kernel<false, false>,
+     forest_infer_tiled_kernel<false, true>},
+    {forest_infer_tiled_kernel<true, false>,
+     forest_infer_tiled_kernel<true, true>}};
+bool opted[2][2] = {};
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// caller (layout.py, plan.py) has built and validated the records, masks
-// and mask_start, checked X, and planned the grid and shared bytes. N > 0.
+// caller (layout.py, plan.py) has built and validated the records, masks,
+// mask_start, oblique pairs and obl_start, checked X, and planned the grid
+// and shared bytes. N > 0.
 extern "C" int forest_infer_tiled(
     const float* X, int N, int F, const void* rec, const void* masks,
-    const int* mask_start, const float* leaf, const int* block_depth,
-    const int* slot_col, int S, int M, int O, int n_cols, int staged,
-    int group, int n_groups, int mask_cap, int rows, int chunks, int smem,
-    float* out, void* stream) {
-  forest_traverse::Args a{
-      X, N, F, static_cast<const int4*>(rec),
-      static_cast<const uint32_t*>(masks), mask_start, leaf, O, S, M, group,
-      n_groups, chunks, mask_cap, rows, block_depth, 0, slot_col,
-      n_cols, out};
+    const int* mask_start, const void* obl, const int* obl_start, int P,
+    const float* leaf, const int* block_depth, const int* slot_col, int S,
+    int M, int O, int n_cols, int staged, int group, int n_groups,
+    int mask_cap, int rows, int chunks, int smem, float* out, void* stream) {
+  forest_traverse::Args a{};
+  a.X = X; a.N = N; a.F = F;
+  a.rec = static_cast<const int4*>(rec);
+  a.masks = static_cast<const uint32_t*>(masks);
+  a.mask_start = mask_start;
+  a.obl = static_cast<const int2*>(obl);
+  a.obl_start = obl_start;
+  a.P = P;
+  a.leaf = leaf; a.O = O; a.S = S; a.M = M;
+  a.group = group; a.n_groups = n_groups; a.chunks = chunks;
+  a.mask_cap = mask_cap; a.rows = rows;
+  a.group_rounds = block_depth; a.rounds = 0;
+  a.slot_col = slot_col; a.n_cols = n_cols; a.out = out;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return staged
-      ? forest_traverse::launch(forest_infer_tiled_kernel<true>, a, smem, s,
-                                &opted[1])
-      : forest_traverse::launch(forest_infer_tiled_kernel<false>, a, smem, s,
-                                &opted[0]);
+  const int i = staged ? 1 : 0, j = P > 0 ? 1 : 0;
+  return forest_traverse::launch(kKernels[i][j], a, smem, s, &opted[i][j]);
 }

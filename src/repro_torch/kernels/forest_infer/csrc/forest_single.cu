@@ -7,7 +7,9 @@
 // tables: every example walks every tree for max(1, depth) rounds, depth
 // being the forest's global depth; a numerical node goes right when
 // x >= threshold, a node with a non-empty 256-bit category mask when the
-// bit of cat_code(x) is set; leaves self-loop. The output is the final
+// bit of cat_code(x) is set, a sparse-oblique node (which the TPU kernel
+// refuses) when its projection, summed as traverse.cuh says, is
+// >= threshold; leaves self-loop. The output is the final
 // node's leaf value, (N, T, O) float32 in tree order.
 //
 // Design. The TPU kernel selects a node by a one-hot (TN, M) MXU matmul
@@ -44,34 +46,46 @@
 
 namespace {
 
-template <bool kStaged>
+template <bool kStaged, bool kOblique>
 __global__ void __launch_bounds__(forest_traverse::kThreads)
 forest_single_kernel(forest_traverse::Args a) {
-  forest_traverse::run<kStaged>(a);
+  forest_traverse::run<kStaged, kOblique>(a);
 }
 
-bool opted[2] = {false, false};
+// [staged][oblique]: the oblique branch only where P > 0
+void (*const kKernels[2][2])(forest_traverse::Args) = {
+    {forest_single_kernel<false, false>,
+     forest_single_kernel<false, true>},
+    {forest_single_kernel<true, false>,
+     forest_single_kernel<true, true>}};
+bool opted[2][2] = {};
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// caller (layout.py, plan.py) has built and validated the records, masks
-// and mask_start, checked X, and planned the grid and shared bytes.
-// N > 0, T >= 1, rounds >= 1.
+// caller (layout.py, plan.py) has built and validated the records, masks,
+// mask_start, oblique pairs and obl_start, checked X, and planned the grid
+// and shared bytes. N > 0, T >= 1, rounds >= 1.
 extern "C" int forest_predict_single(
     const float* X, int N, int F, const void* rec, const void* masks,
-    const int* mask_start, const float* leaf, int T, int M, int O, int rounds,
-    int staged, int group, int n_groups, int mask_cap, int rows, int chunks,
-    int smem, float* out, void* stream) {
-  forest_traverse::Args a{
-      X, N, F, static_cast<const int4*>(rec),
-      static_cast<const uint32_t*>(masks), mask_start, leaf, O, T, M, group,
-      n_groups, chunks, mask_cap, rows, nullptr, rounds, nullptr, T,
-      out};
+    const int* mask_start, const void* obl, const int* obl_start, int P,
+    const float* leaf, int T, int M, int O, int rounds, int staged,
+    int group, int n_groups, int mask_cap, int rows, int chunks, int smem,
+    float* out, void* stream) {
+  forest_traverse::Args a{};
+  a.X = X; a.N = N; a.F = F;
+  a.rec = static_cast<const int4*>(rec);
+  a.masks = static_cast<const uint32_t*>(masks);
+  a.mask_start = mask_start;
+  a.obl = static_cast<const int2*>(obl);
+  a.obl_start = obl_start;
+  a.P = P;
+  a.leaf = leaf; a.O = O; a.S = T; a.M = M;
+  a.group = group; a.n_groups = n_groups; a.chunks = chunks;
+  a.mask_cap = mask_cap; a.rows = rows;
+  a.group_rounds = nullptr; a.rounds = rounds;
+  a.slot_col = nullptr; a.n_cols = T; a.out = out;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return staged
-      ? forest_traverse::launch(forest_single_kernel<true>, a, smem, s,
-                                &opted[1])
-      : forest_traverse::launch(forest_single_kernel<false>, a, smem, s,
-                                &opted[0]);
+  const int i = staged ? 1 : 0, j = P > 0 ? 1 : 0;
+  return forest_traverse::launch(kKernels[i][j], a, smem, s, &opted[i][j]);
 }

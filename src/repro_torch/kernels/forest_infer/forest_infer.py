@@ -9,6 +9,11 @@
     walk per (example, tree) over the raw (T, M) SoA at the forest's global
     depth, (N, T, O) float32 in tree order.
 
+Both also take sparse-oblique nodes (``obl_features`` / ``obl_weights``),
+which the TPU kernels refuse: their projections follow numpy's pairwise
+order (``ref.pairwise_sum``), so the kernels equal the reference's
+vectorized ``predict_raw`` bit for bit.
+
 Both table-level functions check every table, build the node layout
 (``layout.build``) and call the layout-level wrappers, ``run_tiled`` and
 ``run_single``, which the serving path calls with the layout that
@@ -49,8 +54,8 @@ def library() -> ctypes.CDLL:
     work. Raises RuntimeError when the build fails."""
     lib = ctypes.CDLL(str(_build.build(SOURCE).library))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.forest_infer_tiled.argtypes = [p, i, i, p, p, p, p, p, p, i, i, i, i,
-                                       i, i, i, i, i, i, i, p, p]
+    lib.forest_infer_tiled.argtypes = [p, i, i, p, p, p, p, p, i, p, p, p, i,
+                                       i, i, i, i, i, i, i, i, i, i, p, p]
     lib.forest_infer_tiled.restype = ctypes.c_int
     return lib
 
@@ -60,8 +65,8 @@ def single_library() -> ctypes.CDLL:
     """The single-tree kernel's library, built and loaded as ``library``."""
     lib = ctypes.CDLL(str(_build.build(SINGLE_SOURCE).library))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.forest_predict_single.argtypes = [p, i, i, p, p, p, p, i, i, i, i, i,
-                                          i, i, i, i, i, i, p, p]
+    lib.forest_predict_single.argtypes = [p, i, i, p, p, p, p, p, i, p, i, i,
+                                          i, i, i, i, i, i, i, i, i, p, p]
     lib.forest_predict_single.restype = ctypes.c_int
     return lib
 
@@ -108,6 +113,19 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def plan_of(lay: NodeLayout, N: int,
+            variant: str | None = None) -> launch_plan.Plan:
+    """The launch plan of N rows over ``lay``: B2's for a packed layout,
+    B4's for an unpacked one (side tables counted)."""
+    if lay.packed:
+        return launch_plan.tiled_plan(N, lay.slots // lay.group, lay.group,
+                                      lay.max_nodes, lay.group_masks[0],
+                                      variant, lay.group_obl[0])
+    return launch_plan.single_plan(N, max(1, lay.slots), lay.max_nodes,
+                                   lay.out_dim, lay.group_masks, variant,
+                                   lay.group_obl)
+
+
 def run_tiled(X: torch.Tensor, lay: NodeLayout, *, tree_order: bool = False,
               variant: str | None = None) -> torch.Tensor:
     """X (N, F) f32 over a packed layout -> (N, S, O) f32 in packed slot
@@ -119,7 +137,7 @@ def run_tiled(X: torch.Tensor, lay: NodeLayout, *, tree_order: bool = False,
     if tree_order and lay.slot_tree is None:
         raise ValueError("tree order needs a layout built with inv_order")
     N, F = X.shape
-    S, M, O, TB = lay.slots, lay.max_nodes, lay.out_dim, lay.group
+    S, M, O = lay.slots, lay.max_nodes, lay.out_dim
     if dev.type == "cpu":
         return node_layout.walk(X, lay, tree_order=tree_order)
     cols = lay.n_trees if tree_order else S
@@ -127,12 +145,12 @@ def run_tiled(X: torch.Tensor, lay: NodeLayout, *, tree_order: bool = False,
     out = torch.empty((N, cols, O), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    pl = launch_plan.tiled_plan(N, S // TB, TB, M, lay.group_masks[0],
-                                variant)
+    pl = plan_of(lay, N, variant)
     global LAUNCHES
     err = lib.forest_infer_tiled(
         X.data_ptr(), N, F, lay.records.data_ptr(), lay.masks.data_ptr(),
-        lay.mask_start.data_ptr(), lay.leaf.data_ptr(),
+        lay.mask_start.data_ptr(), lay.obl.data_ptr(),
+        lay.obl_start.data_ptr(), lay.obl_dims, lay.leaf.data_ptr(),
         lay.block_depth.data_ptr(),
         lay.slot_tree.data_ptr() if tree_order else None, S, M, O, cols,
         *pl.kernel_args(), out.data_ptr(), _stream(dev))
@@ -159,12 +177,13 @@ def run_single(X: torch.Tensor, lay: NodeLayout, *,
     if N == 0 or T == 0:
         return out
     lib = single_library()
-    pl = launch_plan.single_plan(N, T, M, O, lay.group_masks, variant)
+    pl = plan_of(lay, N, variant)
     global SINGLE_LAUNCHES
     err = lib.forest_predict_single(
         X.data_ptr(), N, F, lay.records.data_ptr(), lay.masks.data_ptr(),
-        lay.mask_start.data_ptr(), lay.leaf.data_ptr(), T, M, O, lay.depth,
-        *pl.kernel_args(), out.data_ptr(), _stream(dev))
+        lay.mask_start.data_ptr(), lay.obl.data_ptr(),
+        lay.obl_start.data_ptr(), lay.obl_dims, lay.leaf.data_ptr(), T, M, O,
+        lay.depth, *pl.kernel_args(), out.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"forest_predict_single launch failed: CUDA error "
                            f"{err} ({pl})")
@@ -173,10 +192,13 @@ def run_single(X: torch.Tensor, lay: NodeLayout, *,
 
 
 def forest_predict_tiled(X, feature, threshold, cat_mask, left_child,
-                         leaf_value, block_depth) -> torch.Tensor:
+                         leaf_value, block_depth, obl_features=None,
+                         obl_weights=None) -> torch.Tensor:
     """X (N, F) f32; feature/left_child (B, TB, M) i32; threshold
     (B, TB, M) f32; cat_mask (B, TB, M, 8) i32 holding the uint32 mask
-    words bit for bit; leaf_value (B, TB, M, O) f32; block_depth (B,) i32
+    words bit for bit; leaf_value (B, TB, M, O) f32; block_depth (B,) i32;
+    obl_features (B, TB, M, P) i32 and obl_weights (B, TB, M, P) f32 for a
+    forest with sparse-oblique nodes, else None
     -> (N, B*TB, O) f32 in packed tree order.
 
     Checks every table, builds their layout (which checks that every
@@ -201,16 +223,21 @@ def forest_predict_tiled(X, feature, threshold, cat_mask, left_child,
         raise ValueError(f"forest_predict_tiled runs on CUDA or CPU tensors, "
                          f"got device {dev}")
     lay = node_layout.build(feature, threshold, cat_mask, left_child,
-                            leaf_value, block_depth=block_depth)
+                            leaf_value, block_depth=block_depth,
+                            obl_features=obl_features,
+                            obl_weights=obl_weights)
     return run_tiled(X, lay)
 
 
 def forest_predict_single(X, feature, threshold, cat_mask, left_child,
-                          leaf_value, depth: int) -> torch.Tensor:
+                          leaf_value, depth: int, obl_features=None,
+                          obl_weights=None) -> torch.Tensor:
     """X (N, F) f32; feature/left_child (T, M) i32; threshold (T, M) f32;
     cat_mask (T, M, 8) i32 holding the uint32 mask words bit for bit;
-    leaf_value (T, M, O) f32; depth: the forest's global depth -> (N, T, O)
-    f32 in tree order, every tree walked for ``max(1, depth)`` rounds.
+    leaf_value (T, M, O) f32; depth: the forest's global depth;
+    obl_features (T, M, P) i32 and obl_weights (T, M, P) f32, or None
+    -> (N, T, O) f32 in tree order, every tree walked for
+    ``max(1, depth)`` rounds.
 
     Checks every table, builds their layout and runs ``run_single``."""
     if not isinstance(X, torch.Tensor) or X.dim() != 2:
@@ -231,5 +258,7 @@ def forest_predict_single(X, feature, threshold, cat_mask, left_child,
         raise ValueError(f"forest_predict_single runs on CUDA or CPU tensors, "
                          f"got device {dev}")
     lay = node_layout.build(feature, threshold, cat_mask, left_child,
-                            leaf_value, depth=depth)
+                            leaf_value, depth=depth,
+                            obl_features=obl_features,
+                            obl_weights=obl_weights)
     return run_single(X, lay)

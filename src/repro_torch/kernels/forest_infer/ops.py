@@ -4,9 +4,10 @@ A compiled forest is uploaded to its device ONCE: ``forest_predict`` keeps
 a small id-keyed cache mapping a live Forest to its tables on each device —
 (a) the raw SoA (the "single" and "ref" impls) and (b) the depth-packed
 layout (the "cuda" impl), each with the kernels' node layout
-(``layout.build``: 16-byte records and a mask side table, validated when
-built) — so repeat predictions do no host-to-device table transfers, no
-re-packing and no table checks. Entries are validated against a weakref (id
+(``layout.build``: 16-byte records, a mask side table and, for a forest
+with sparse-oblique nodes, the oblique (column, weight) side table,
+validated when built) — so repeat predictions do no host-to-device table
+transfers, no re-packing and no table checks. Entries are validated against a weakref (id
 reuse after GC cannot alias), evicted the moment the forest is collected,
 and LRU-capped.
 
@@ -77,10 +78,19 @@ class DeviceSoA(NamedTuple):
     left_child: torch.Tensor   # (T, M) int32
     leaf_value: torch.Tensor   # (T, M, O) float32
     layout: node_layout.NodeLayout  # the single-tree kernel's records
+    obl_features: torch.Tensor | None = None  # (T, M, P) int32
+    obl_weights: torch.Tensor | None = None   # (T, M, P) float32
 
     @property
     def min_features(self) -> int:
         return self.layout.min_features
+
+    @property
+    def obl(self) -> dict:
+        """The oblique tables as the wrappers' keywords (None when the
+        forest has no oblique node)."""
+        return {"obl_features": self.obl_features,
+                "obl_weights": self.obl_weights}
 
 
 class DevicePacked(NamedTuple):
@@ -92,6 +102,8 @@ class DevicePacked(NamedTuple):
     block_depth: torch.Tensor  # (B,) int32
     inv_order: torch.Tensor    # (T,) int64: original tree t at packed slot
     layout: node_layout.NodeLayout  # the tiled kernel's records
+    obl_features: torch.Tensor | None = None  # (B, TB, M, P) int32
+    obl_weights: torch.Tensor | None = None   # (B, TB, M, P) float32
 
     @property
     def min_features(self) -> int:
@@ -99,9 +111,17 @@ class DevicePacked(NamedTuple):
 
     @property
     def tables(self) -> tuple:
-        """The kernel's table arguments, in ``forest_predict_tiled`` order."""
+        """The kernel's table arguments, in ``forest_predict_tiled`` order
+        (the oblique tables, keywords of the wrappers, are ``obl``)."""
         return (self.feature, self.threshold, self.cat_mask, self.left_child,
                 self.leaf_value, self.block_depth)
+
+    @property
+    def obl(self) -> dict:
+        """The oblique tables as the wrappers' keywords (None when the
+        forest has no oblique node)."""
+        return {"obl_features": self.obl_features,
+                "obl_weights": self.obl_weights}
 
 
 def _check_device(device: torch.device) -> None:
@@ -127,8 +147,12 @@ def device_soa(forest: Forest, device) -> DeviceSoA:
                 up(_mask_words(forest.cat_mask)),
                 up(forest.left_child.astype(np.int32)),
                 up(forest.leaf_value.astype(np.float32)))
+        obl = ((up(forest.obl_features.astype(np.int32)),
+                up(forest.obl_weights.astype(np.float32)))
+               if forest.has_oblique() else (None, None))
         c[key] = DeviceSoA(*tabs, node_layout.build(
-            *tabs, depth=int(forest.depth)))
+            *tabs, depth=int(forest.depth), obl_features=obl[0],
+            obl_weights=obl[1]), *obl)
     return c[key]
 
 
@@ -148,9 +172,12 @@ def device_packed(forest: Forest, device) -> DevicePacked:
         tabs = (up(p.feature), up(p.threshold), up(_mask_words(p.cat_mask)),
                 up(p.left_child), up(p.leaf_value),
                 up(p.block_depth.reshape(-1)))
+        obl = ((up(p.obl_features), up(p.obl_weights))
+               if p.obl_features is not None else (None, None))
         inv_order = up(p.inv_order.astype(np.int64))
         c[key] = DevicePacked(*tabs, inv_order, node_layout.build(
-            *tabs[:5], block_depth=tabs[5], inv_order=inv_order))
+            *tabs[:5], block_depth=tabs[5], inv_order=inv_order,
+            obl_features=obl[0], obl_weights=obl[1]), *obl)
     return c[key]
 
 
@@ -177,7 +204,8 @@ def forest_predict(forest: Forest, X, impl: str = "cuda",
             f"splits on feature index {tabs.min_features - 1}, so it needs "
             f"(N, >= {tabs.min_features}) columns.")
     if impl == "ref":
-        return forest_predict_ref(Xd, *tabs[:5], depth=int(forest.depth))
+        return forest_predict_ref(Xd, *tabs[:5], depth=int(forest.depth),
+                                  **tabs.obl)
     if impl == "single":
         return run_single(Xd, tabs.layout)
     return run_tiled(Xd, tabs.layout, tree_order=True)

@@ -11,8 +11,9 @@ once per block, not once per tile. The plan decides:
     fixed it); for B4 up to ``ceil(WRITE_FLOATS / O)`` consecutive trees,
     so a warp stores whole 32-byte sectors of an output row, and no more
     than fit ``STAGE_BUDGET`` when staged;
-  * the variant: **staged** when the group's records and masks fit
-    ``STAGE_BUDGET``, so that four blocks (32 warps) share an SM,
+  * the variant: **staged** when the group's records and side tables
+    (masks, oblique pairs) fit ``STAGE_BUDGET``, so that four blocks
+    (32 warps) share an SM,
     else **global**: the same records read with 16-byte ``__ldg`` through
     L1 / L2. The walk is latency-bound, so occupancy decides: on the H100
     a Random Forest tree of 4,096 nodes (64 KB of records) staged by
@@ -46,7 +47,7 @@ TILE_PAIRS = 1024             # (example, tree) pairs of a tile
 MIN_TILE_PAIRS = 2 * THREADS  # ... and the fewest a tile is cut to
 MIN_TILE_ROWS, MAX_TILE_ROWS = 32, 1024
 WRITE_FLOATS = 8              # one 32-byte sector of an output row
-RECORD_BYTES, MASK_BYTES = 16, 32
+RECORD_BYTES, MASK_BYTES, PAIR_BYTES = 16, 32, 8
 MAX_BLOCKS = 2 ** 31 - 1
 VARIANTS = ("staged", "global")
 
@@ -81,21 +82,24 @@ def tile_rows(group: int) -> int:
     return rows
 
 
-def table_bytes(group: int, M: int, masks: int) -> int:
+def table_bytes(group: int, M: int, masks: int, pairs: int = 0) -> int:
     """Shared bytes of a staged group: its trees' records, (M + 1) apart
-    (the skew that spreads their roots over the banks), and its masks."""
-    return group * (M + 1) * RECORD_BYTES + masks * MASK_BYTES
+    (the skew that spreads their roots over the banks), its masks and its
+    oblique nodes' (column, weight) pairs."""
+    return (group * (M + 1) * RECORD_BYTES + masks * MASK_BYTES
+            + pairs * PAIR_BYTES)
 
 
 def _finish(N: int, variant: str, group: int, n_groups: int, masks: int,
-            M: int) -> Plan:
+            M: int, pairs: int = 0) -> Plan:
     rows = tile_rows(group)
     staged = variant == "staged"
-    smem = table_bytes(group, M, masks) if staged else 0
+    smem = table_bytes(group, M, masks, pairs) if staged else 0
     if smem > SMEM_LIMIT:
-        raise ValueError(f"a staged block of {group} trees x {M} nodes and "
-                         f"{masks} masks needs {smem} shared bytes, more than "
-                         f"the {SMEM_LIMIT} a block may have")
+        raise ValueError(f"a staged block of {group} trees x {M} nodes, "
+                         f"{masks} masks and {pairs} oblique pairs needs "
+                         f"{smem} shared bytes, more than the {SMEM_LIMIT} a "
+                         "block may have")
     resident = max(1, min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
     want = max(1, SMS * resident // max(1, n_groups))
     floor = max(MIN_TILE_ROWS, MIN_TILE_PAIRS // group)
@@ -121,30 +125,35 @@ def _pick(variant, fits: bool) -> str:
 
 @functools.lru_cache(maxsize=512)
 def tiled_plan(N: int, B: int, TB: int, M: int, block_masks: int,
-               variant: str | None = None) -> Plan:
+               variant: str | None = None, block_pairs: int = 0) -> Plan:
     """B2's plan: groups are the packed blocks (B of TB trees x M nodes,
-    at most ``block_masks`` masks each)."""
+    at most ``block_masks`` masks and ``block_pairs`` oblique pairs each)."""
     if N < 0 or B < 1 or TB < 1 or M < 1:
         raise ValueError(f"no plan for N={N}, B={B}, TB={TB}, M={M}")
-    fits = table_bytes(TB, M, block_masks) <= STAGE_BUDGET
-    return _finish(N, _pick(variant, fits), TB, B, block_masks, M)
+    fits = table_bytes(TB, M, block_masks, block_pairs) <= STAGE_BUDGET
+    return _finish(N, _pick(variant, fits), TB, B, block_masks, M,
+                   block_pairs)
 
 
 @functools.lru_cache(maxsize=512)
 def single_plan(N: int, T: int, M: int, O: int, group_masks: tuple,
-                variant: str | None = None) -> Plan:
+                variant: str | None = None,
+                group_pairs: tuple | None = None) -> Plan:
     """B4's plan over T trees of M nodes and O outputs; ``group_masks[k-1]``
-    is the most masks of any k consecutive trees (``layout.group_masks``)."""
+    and ``group_pairs[k-1]`` are the most masks and oblique pairs of any k
+    consecutive trees (``layout.group_masks``, ``layout.group_obl``; no
+    pairs when None)."""
     if N < 0 or T < 1 or M < 1 or O < 1:
         raise ValueError(f"no plan for N={N}, T={T}, M={M}, O={O}")
+    pairs = group_pairs or (0,) * len(group_masks)
     want = max(1, min(T, _ceil(WRITE_FLOATS, O), len(group_masks)))
-    fits = table_bytes(1, M, group_masks[0]) <= STAGE_BUDGET
+    fits = table_bytes(1, M, group_masks[0], pairs[0]) <= STAGE_BUDGET
     variant = _pick(variant, fits)
     group = want
     if variant == "staged":
         group = 1
-        while (group < want and table_bytes(group + 1, M, group_masks[group])
-               <= STAGE_BUDGET):
+        while (group < want and table_bytes(group + 1, M, group_masks[group],
+                                            pairs[group]) <= STAGE_BUDGET):
             group += 1
     return _finish(N, variant, group, _ceil(T, group), group_masks[group - 1],
-                   M)
+                   M, pairs[group - 1])

@@ -336,8 +336,9 @@ class _ModelState:
 
 
 def _default_chain(device) -> list[str]:
-    """The kernel engine alone on the card; on the CPU the degradation
-    chain: "ref" (the plain PyTorch traversal), then the numpy engines."""
+    """The kernel engine alone on the card, for every forest (sparse-oblique
+    ones too); on the CPU the degradation chain: "ref" (the plain PyTorch
+    traversal), then the numpy engines."""
     return ["cuda"] if device.type == "cuda" else ["ref", "vectorized", "naive"]
 
 

@@ -297,7 +297,8 @@ def latest_checkpoint(directory: str
 # ---------------------------------------------------------------- forest I/O
 
 _FOREST_KEYS = ("feature", "threshold", "split_bin", "cat_mask", "left_child",
-                "leaf_value", "n_nodes", "split_gain", "tree_class")
+                "leaf_value", "n_nodes", "split_gain", "obl_weights",
+                "obl_features", "tree_class")
 
 
 def forest_payload(forest, n_trees: int) -> dict:
@@ -315,7 +316,7 @@ def restore_forest(forest, payload: dict) -> int:
     the number of trees restored."""
     n = payload["feature"].shape[0]
     for k in _FOREST_KEYS:
-        v = payload[k]
+        v = payload.get(k)   # a checkpoint may predate a key
         a = getattr(forest, k)
         if v is None or a is None:
             continue

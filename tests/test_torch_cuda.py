@@ -25,6 +25,9 @@ card's ``logf`` and the CPU's ``torch.log``). Models trained on the card
 predict the same bits after a save and a load, and a training stopped and
 resumed on the card equals the uninterrupted card run on every Forest
 field (no tolerance: the kernels' sums are exact, so card runs repeat).
+Both traversal kernels serve sparse-oblique forests bit for bit with their
+plain versions and the vectorized engine, whose projection sums follow
+numpy's pairwise order as the kernels do.
 """
 from __future__ import annotations
 
@@ -538,3 +541,47 @@ def test_resumed_training_on_the_card_equals_uninterrupted(cuda, tmp_path,
     assert 0 < info["trees_at_stop"] <= info["trees"]
     assert resumed.training_logs["resilience"]
     assert chip_smoke.same_forest(resumed.forest, clean.forest)
+
+
+# ------------------------------------------- sparse-oblique forests (A3)
+
+def test_oblique_traversal_variants_on_the_zoo(cuda):
+    """Both kernels on oblique forests in each plan variant against their
+    plain versions (``torch.equal``) and the vectorized engine
+    (``array_equal`` on every row): P = 1, 7, 8, 9, 28, 128, 129 and 300
+    over hostile rows, and the near tie, where only ``predict_naive``
+    (``np.dot``) differs."""
+    import chip_smoke
+    cases = {**chip_smoke.oblique_zoo(), "near tie": chip_smoke.near_tie()}
+    r = chip_smoke.check_all_variants(cases, cuda, ("tiled", "single"))
+    assert r["max_abs_err"] == 0.0
+    assert r["cases"]["near tie"]["naive"]["pairs_differ"] == 1
+
+
+def test_oblique_forest_trained_on_the_card_serves_through_the_kernels(
+        cuda, tmp_path):
+    """The benchmark_rank1 Random Forest, short, trained on the card (B3
+    builds its histograms, launches == builds) equals the CPU's forest,
+    compiles to the cuda engine with no engine named, and both kernels in
+    each plan variant equal their plain versions and the vectorized
+    engine; its save and load predict the same."""
+    import chip_smoke
+    from repro_torch.core.engines import compile_predictor
+    from repro_torch.core.hist_backend import resolve_backend
+    from repro_torch.kernels.histogram import histogram
+    data = chip_smoke.higgs_like(4_000)
+    kw = dict(template="benchmark_rank1", num_trees=2, max_depth=8)
+    backend = resolve_backend("auto", cuda)
+    histogram.LAUNCHES, backend.builds = 0, 0
+    card = chip_smoke.train_rf(data, cuda, **kw)
+    assert histogram.LAUNCHES == backend.builds > 0
+    assert card.forest.has_oblique()
+    assert chip_smoke.identical(card, chip_smoke.train_rf(data, "cpu", **kw))
+    rows = {k: v[:2_000] for k, v in data.items()}
+    pred = compile_predictor(card, device=cuda)
+    assert pred.name == "cuda"
+    X = pred.encode({k: rows[k] for k in card.features})
+    r = chip_smoke.check_variants(card.forest, X, cuda)
+    assert r["max_abs_err"] == 0.0
+    out = chip_smoke.serve_rank1({"rf": card}, rows, cuda, str(tmp_path))
+    assert out["tiled_launches"] == out["single_launches"] == 1

@@ -110,9 +110,32 @@ def test_torch_backend_grows_the_numpy_backend_trees(adult, strategy):
     np.testing.assert_allclose(f_np.leaf_value, f_pl.leaf_value, atol=1e-5)
 
 
+@pytest.mark.parametrize("hp", [
+    dict(template="benchmark_rank1"),       # oblique + RANDOM + best-first
+    dict(split_axis="SPARSE_OBLIQUE"),      # oblique under LOCAL growth
+], ids=["benchmark_rank1", "sparse_oblique_local"])
+def test_oblique_gbt_equals_reference_and_oracle(adult, hp):
+    """Sparse-oblique GBTs (the benchmark_rank1 rows of
+    tests/test_grower_batched.py): the port's batched forest equals the
+    reference's batched forest and the port's oracle on every field, the
+    oblique tables included."""
+    kw = dict(label="income", num_trees=6, **hp)
+    ref = RefGBT(**kw, growth_engine="batched").train(adult)
+    got = GradientBoostedTreesLearner(**kw, device="cpu").train(adult)
+    oracle = GradientBoostedTreesLearner(**kw, growth_engine="oracle",
+                                         device="cpu").train(adult)
+    assert got.training_logs["growth_engine"] == "batched"
+    assert got.forest.has_oblique()
+    for other, name in ((ref, "reference"), (oracle, "oracle")):
+        assert_identical(got.forest, other.forest, f"{name} {hp}")
+        for k in ("obl_weights", "obl_features"):
+            np.testing.assert_array_equal(getattr(got.forest, k),
+                                          getattr(other.forest, k),
+                                          err_msg=f"{name} {hp}: forest.{k}")
+    assert got.training_logs["valid_loss"] == ref.training_logs["valid_loss"]
+
+
 @pytest.mark.parametrize("kw", [
-    dict(template="benchmark_rank1"),
-    dict(split_axis="SPARSE_OBLIQUE"),
     dict(histogram_backend="cuda"),
     dict(histogram_backend="pallas_interpret"),
 ])

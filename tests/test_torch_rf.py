@@ -148,9 +148,31 @@ def test_trained_forest_serves_as_the_reference_model(adult):
             got.predict(test, engine=engine, device="cpu"), want)
 
 
+@pytest.mark.parametrize("task,kw", [
+    ("CLASSIFICATION", dict(template="benchmark_rank1")),
+    ("REGRESSION", dict(split_axis="SPARSE_OBLIQUE")),
+], ids=["benchmark_rank1", "sparse_oblique_regression"])
+def test_oblique_rf_equals_reference(adult, regression, task, kw):
+    """Sparse-oblique Random Forests grow tree by tree (their projections
+    draw from each tree's rng stream, so no lockstep block): every forest
+    field, the oblique tables and the out-of-bag evaluation equal the
+    reference's."""
+    data, label = (adult, "income") if task == "CLASSIFICATION" \
+        else (regression, "label")
+    common = dict(label=label, num_trees=3, max_depth=8, **kw)
+    ref = RefRF(task=RefTask(task), **common).train(data)
+    got = RandomForestLearner(task=Task(task), device="cpu",
+                              **common).train(data)
+    assert got.forest.has_oblique()
+    assert_identical(got.forest, ref.forest, str(kw))
+    for k in ("obl_weights", "obl_features"):
+        np.testing.assert_array_equal(getattr(got.forest, k),
+                                      getattr(ref.forest, k), err_msg=k)
+    assert got.self_evaluation.metrics == ref.self_evaluation.metrics
+    assert got.training_logs["oob"] == ref.training_logs["oob"]
+
+
 @pytest.mark.parametrize("kw", [
-    dict(template="benchmark_rank1"),
-    dict(split_axis="SPARSE_OBLIQUE"),
     dict(histogram_backend="cuda"),
 ])
 def test_unported_or_wrong_device_options_raise(adult, kw):

@@ -272,9 +272,10 @@ def test_convert_refuses_what_the_port_does_not_serve(trained):
     ref_model, _, _ = trained["gbt_binary"]
     arrays = {k: getattr(ref_model.forest, k) for k in FIELDS}
     spec = spec_to_dict(ref_model.spec)
+    # oblique nodes (feature == -2) without their obl_weights/obl_features
     oblique = dict(arrays, feature=np.where(arrays["feature"] >= 0, -2,
                                             arrays["feature"]))
-    with pytest.raises(YdfError, match="oblique"):
+    with pytest.raises(YdfError, match="no oblique tables"):
         convert.model_from_arrays("gbt", oblique, spec, ref_model.features,
                                   task="CLASSIFICATION")
     with pytest.raises(YdfError, match="not in the dataspec"):
