@@ -14,9 +14,10 @@ kernel; train the default Random Forest (max_depth 16, 4,096 nodes, sqrt(F)
 candidates, bootstrap, out-of-bag evaluation; the first RF_TREES of its 300
 trees) and the default CART tree on the same data and serve the forest;
 run the single-tree traversal kernel on the trained forest and the GBT;
-and train the paper's best settings, the benchmark_rank1 GBT and Random
+train the paper's best settings, the benchmark_rank1 GBT and Random
 Forest (sparse-oblique splits; 2 trees each), and serve them through both
-traversal kernels.
+traversal kernels; and train the tasks (LambdaMART ranking through both
+histogram kernels, uplift trees, an isolation forest) and serve them.
 The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
@@ -185,10 +186,51 @@ JSON line each:
                      reset just before, read just after); the RF saved and
                      loaded predicts the same.
 
+ 22. train_ranking — LambdaMART (the default GBT, task=RANKING, NDCG@5 early
+                     stopping) on grouped_relevance (RANKING: 8,000 groups
+                     of 8-16 rows, 3 numerical columns), 70% of the groups
+                     trained on and 30% held out: on the batched engine
+                     (B3, launches == builds) and on the device engine
+                     (B1, launches == level steps), counts reset just
+                     before each run and read just after; seconds and trees
+                     kept; NDCG@5 on the held-out groups against a
+                     pointwise-regression GBT on the same split; traced
+                     20-tree runs of both engines with the lambda pass's
+                     share (``gbt/grad_hess``). Gates at
+                     RANKING_COMPARE_GROUPS groups and RANKING_COMPARE_TREES
+                     trees (``ranking_gates``): the batched card forest
+                     equals the CPU's numpy forest on every field but
+                     split_gain, which agrees within GAIN_RTOL; the
+                     device engine agrees with the CPU's on >= 99.5% of
+                     each structure field and repeats on the card, on data
+                     with pairless groups too, whose pairless leaves have
+                     the CPU's values.
+ 23. train_uplift  — the default uplift forest (depth 8, 4,096 nodes, SQRT
+                     of 4 columns, bootstrap) on randomized_treatment
+                     (100,000 rows), cut to UPLIFT_TREES trees: B3 builds
+                     every histogram of the four uplift stats (launches ==
+                     builds); the card's forest equals the CPU's on every
+                     field; Qini > 0; growth_engine="device" raises; a
+                     traced block.
+ 24. train_isolation — the default isolation forest (100 trees, psi 256,
+                     depth <= 8; host numpy training) on planted_anomaly
+                     (104,000 rows): equal to the CPU's; AUC >= 0.9; served
+                     through ``make_forest_server`` (B2) in 40 requests,
+                     each equal to ``finalize(predict_naive(encode(batch)))``
+                     bit for bit, and all rows at once equal to the
+                     vectorized engine; B4 equal to B2; both kernels in
+                     each plan variant (``check_variants``).
+ 25. serve_tasks   — the trained ranking and uplift models serve
+                     TASK_SERVE_ROWS rows each through
+                     ``make_forest_server`` (B2), equal to ``model.predict``
+                     on the CPU bit for bit.
+
 The timings phase also times B2 and B4 on the rank1 forests at 10,000 rows
 (``time_tiled``, ``time_single``; the bound counts 8 P bytes and 2 P
 operations per oblique node), and the kernels line carries those numbers
-under each traversal kernel's "oblique" key. Then the kernels line (``{"kernels": [...]}``), the card's name and power
+under each traversal kernel's "oblique" key, and on the isolation forest
+at 104,000 rows under its "isolation" key; B1 and B3 carry the task phases'
+launches under "task_launches". Then the kernels line (``{"kernels": [...]}``), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 1 at once.
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -281,6 +323,24 @@ RANK1_TREES = 2
 OBLIQUE_DIMS = (1, 7, 8, 9, 28, 128, 129, 300)
 OBLIQUE_F = 24            # columns of the zoo's rows
 OBLIQUE_HOSTILE = (float("nan"), float("inf"), float("-inf"), 1e20, -1e20)
+# the tasks (ROADMAP A4; repro_torch/data/tabular.py), at the default
+# hyper-parameters: LambdaMART on grouped_relevance (RANKING_GROUPS groups
+# of 8-16 rows, 3 numerical columns; RANKING_HOLDOUT of the groups held out
+# with split seed 99, as tests/test_tasks.py:121 splits), its gates at
+# RANKING_COMPARE_GROUPS groups and RANKING_COMPARE_TREES trees; uplift
+# trees on randomized_treatment, cut from 100 to UPLIFT_TREES trees (the
+# only cut), the gates on the same run; the isolation forest on
+# planted_anomaly; TASK_SERVE_ROWS rows served per ranking / uplift model
+RANKING = dict(n_groups=8_000, seed=7)
+RANKING_HOLDOUT = 0.3
+RANKING_COMPARE_GROUPS, RANKING_COMPARE_TREES = 1_700, 10
+UPLIFT = dict(n=100_000, seed=11)
+UPLIFT_TREES = 16
+ANOMALY = dict(n_inlier=100_000, n_anomaly=4_000, seed=13)
+TASK_SERVE_ROWS = 10_000
+# split_gain of a GBT grown from float gradients, card (B3) against the
+# CPU's numpy histograms: see equal_but_gain
+GAIN_RTOL = 1e-4
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -2230,6 +2290,378 @@ def time_tiled(cases: dict, device) -> dict:
     return out
 
 
+# ------------------------------------------------- the tasks (ROADMAP A4)
+
+def ranking_data(n_groups: int = RANKING["n_groups"]) -> tuple:
+    """grouped_relevance at ``n_groups`` groups, split by group into the
+    training groups and the RANKING_HOLDOUT held out (split seed 99)."""
+    from repro_torch.data.tabular import grouped_relevance
+    from repro_torch.tasks.ranking import group_aware_split
+    data = grouped_relevance(n_groups=n_groups, seed=RANKING["seed"])
+    gid = np.asarray(data["group"], np.int64)
+    tr, te = group_aware_split(gid, RANKING_HOLDOUT, 99)
+    return ({k: v[tr] for k, v in data.items()},
+            {k: v[te] for k, v in data.items()})
+
+
+def train_ranking(data: dict, device, **hparams):
+    """The default LambdaMART GBT (``GBTHparams()``, task=RANKING: the
+    batched engine unless ``growth_engine`` is named), trained on
+    ``device``."""
+    from repro_torch.core.api import Task
+    return train_default(data, device, label="rel", task=Task.RANKING,
+                         **hparams)
+
+
+def train_ranking_device(data: dict, device, **hparams):
+    """The default LambdaMART GBT with the device growth engine."""
+    return train_ranking(data, device, growth_engine="device", **hparams)
+
+
+def pairless(data: dict) -> dict:
+    """``data`` with every third group's relevance flattened: those rows
+    have no pair, so their lambdas are 0 and their hessians the 1e-12
+    guard, far below the device engine's fixed-point resolution."""
+    gid = np.asarray(data["group"], np.int64)
+    rel = np.asarray(data["rel"], np.float64).copy()
+    rel[gid % 3 == 0] = 1.0
+    return dict(data, rel=rel.astype(object))
+
+
+def field_equal(a, b) -> dict:
+    """Per Forest field of two models: equal or not."""
+    return {k: bool(np.array_equal(getattr(a.forest, k), getattr(b.forest, k)))
+            for k in FOREST_FIELDS}
+
+
+def equal_but_gain(card, cpu) -> dict:
+    """Two GBTs grown from float gradients on the batched engine, the card's
+    (B3) and the CPU's (numpy): every Forest field equal but
+    ``split_gain``, which agrees within GAIN_RTOL of each gain. B3 rounds
+    an exact sum of values quantized at ~2^-45 of each stat's largest
+    |value|, numpy a float64 sum of the values: a few histogram cells
+    differ in their last float32 bit, and the gain's cancellation (score of
+    the children less the parent's) carries that to ~1e-5 of the gain
+    (1.4e-5 when the quantization is emulated on the CPU). Integer stats
+    (RF, CART, uplift) have no such rounding; their gains are equal."""
+    fields = field_equal(card, cpu)
+    a, b = card.forest.split_gain, cpu.forest.split_gain
+    diff = np.abs(a.astype(np.float64) - b)
+    live = b != 0
+    rel = float((diff[live] / np.abs(b[live])).max()) if live.any() else 0.0
+    others = {k: v for k, v in fields.items() if k != "split_gain"}
+    if not all(others.values()) or not np.allclose(a, b, rtol=GAIN_RTOL,
+                                                   atol=0):
+        raise AssertionError(f"batched card vs CPU: fields equal {fields}, "
+                             f"split_gain max relative diff {rel}")
+    return {"fields_equal": fields, "split_gain_differ": int((diff > 0).sum()),
+            "split_gains": int(live.sum()), "split_gain_max_rel_diff": rel}
+
+
+def ranking_gates(device) -> dict:
+    """The ranking GBT's gates at RANKING_COMPARE_GROUPS groups and
+    RANKING_COMPARE_TREES trees. Batched: the card's forest (B3) equals the
+    CPU's numpy-backend forest on every field but ``split_gain``, which
+    agrees within GAIN_RTOL (``equal_but_gain``), with equal loss logs.
+    Device engine: the card's forest (B1) agrees with the CPU's (the
+    kernel's plain version) on >= 99.5% of each structure field, a second
+    card run repeats it bit for bit; on data with pairless groups likewise;
+    on data whose every group is pairless, each root holds only pairless
+    rows and its leaf is the CPU's, 0."""
+    train, _ = ranking_data(RANKING_COMPARE_GROUPS)
+    kw = dict(num_trees=RANKING_COMPARE_TREES)
+    card, cpu = train_ranking(train, device, **kw), train_ranking(train, "cpu",
+                                                                  **kw)
+    batched = equal_but_gain(card, cpu)
+    for key in ("train_loss", "valid_loss"):
+        if card.training_logs[key] != cpu.training_logs[key]:
+            raise AssertionError(f"ranking batched card vs CPU {key} differ")
+    out = {"rows": len(train["rel"]), "trees": RANKING_COMPARE_TREES,
+           "batched": batched}
+    for name, data in (("device", train), ("device_pairless",
+                                           pairless(train))):
+        a = train_ranking_device(data, device, **kw)
+        b = train_ranking_device(data, device, **kw)
+        c = train_ranking_device(data, "cpu", **kw)
+        if not identical(a, b):
+            raise AssertionError(f"ranking {name}: two card runs differ")
+        agree = agreement(a, c)
+        low = {k: v for k, v in agree.items() if v < 0.995}
+        if low:
+            raise AssertionError(f"ranking {name} card vs CPU agrees only "
+                                 f"{low}")
+        out[name] = {"agree": agree, "card_runs_identical": True,
+                     "leaf_max_abs_diff": float(np.abs(
+                         a.forest.leaf_value - c.forest.leaf_value).max())}
+    # every group flattened: each root holds only pairless rows (g = 0, h
+    # the 1e-12 guard), and its leaf is 0 on the card as on the CPU
+    flat = dict(train, rel=np.full(len(train["rel"]), 2.0).astype(object))
+    a, c = (train_ranking_device(flat, d, num_trees=2, early_stopping="NONE")
+            for d in (device, "cpu"))
+    if not (identical(a, c) and (a.forest.n_nodes == 1).all()
+            and (a.forest.leaf_value == 0).all()):
+        raise AssertionError("all-pairless roots: card and CPU leaves differ")
+    out["all_pairless_roots"] = {"trees": a.forest.n_trees, "leaf_values": [
+        float(v) for v in a.forest.leaf_value[:, 0, 0]]}
+    return out
+
+
+def run_ranking(device, backend, n_groups: int = RANKING["n_groups"]
+                ) -> tuple:
+    """LambdaMART at ``n_groups`` groups (the default GBT, task=RANKING) on
+    the card, on the batched engine (B3: launches == builds) and on the
+    device engine (B1: launches == level steps), counts reset just before
+    each run and
+    read just after; NDCG@5 over the held-out groups against a
+    pointwise-regression GBT (the default, batched) on the same split;
+    traced 20-tree runs of both engines (the lambda pass is the
+    ``gbt/grad_hess`` span); the gates of ``ranking_gates``. Returns
+    ({"batched": model, "device": model}, summary)."""
+    from repro_torch.core import grower_device
+    from repro_torch.core.api import Task
+    from repro_torch.core.evaluation import ndcg_at_k
+    from repro_torch.kernels.histogram import fused, histogram
+    from repro_torch.obs import clock
+    on_card = device.type == "cuda"
+    train, test = ranking_data(n_groups)
+    out = {"rows": len(train["rel"]), "holdout_rows": len(test["rel"]),
+           "groups": n_groups}
+    histogram.LAUNCHES = 0               # the batched run starts here
+    backend.builds = 0
+    t0 = clock.perf()
+    batched = train_ranking(train, device)
+    seconds = clock.perf() - t0
+    launches, builds = histogram.LAUNCHES, backend.builds   # ... ends here
+    logs = batched.training_logs
+    if (logs["growth_engine"], logs.get("histogram_backend")) != (
+            "batched", backend.name):
+        raise AssertionError(f"ranking GBT trained with {logs}")
+    if on_card and (builds <= 0 or launches != builds):
+        raise AssertionError(f"ranking: {builds} histogram builds made "
+                             f"{launches} kernel launches")
+    fused.LAUNCHES = 0                   # the device-engine run starts here
+    grower_device.LEVEL_STEPS = 0
+    t0 = clock.perf()
+    device_model = train_ranking_device(train, device)
+    d_seconds = clock.perf() - t0
+    d_launches, steps = fused.LAUNCHES, grower_device.LEVEL_STEPS  # ... ends
+    dlogs = device_model.training_logs
+    if (dlogs["growth_engine"], dlogs["device_impl"]) != (
+            "device", "cuda" if on_card else "torch"):
+        raise AssertionError(f"ranking GBT trained with {dlogs}")
+    if steps <= 0 or on_card and d_launches != steps:
+        raise AssertionError(f"ranking: {steps} level steps made "
+                             f"{d_launches} split-search launches")
+    histogram.LAUNCHES = 0               # the pointwise baseline
+    backend.builds = 0
+    pointwise = train_default({k: v for k, v in train.items() if k != "group"},
+                              device, label="rel", task=Task.REGRESSION)
+    p_launches, p_builds = histogram.LAUNCHES, backend.builds
+    if on_card and (p_builds <= 0 or p_launches != p_builds):
+        raise AssertionError(f"pointwise: {p_builds} builds made "
+                             f"{p_launches} launches")
+    gid = np.asarray(test["group"], np.int64)
+    rel = np.asarray(test["rel"], np.float64)
+    ndcg = {}
+    for name, m in (("batched", batched), ("device", device_model),
+                    ("pointwise_regression", pointwise)):
+        scores = np.asarray(m.predict(test, device=device))
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"ranking: {name} scores are not finite")
+        ndcg[name] = ndcg_at_k(rel, scores, gid, 5)
+    for name, m, s, n_launch in (("batched", batched, seconds, launches),
+                                 ("device", device_model, d_seconds,
+                                  d_launches)):
+        lg = m.training_logs
+        out[name] = {
+            "seconds": s, "trees_grown": len(lg["train_loss"]),
+            "trees_kept": m.forest.n_trees, "launches": n_launch,
+            "valid_ndcg5": m.self_evaluation["ndcg@5"],
+            "valid_loss": lg["valid_loss"][m.forest.n_trees - 1]}
+    out["batched"]["builds"] = builds
+    out["device"]["level_steps"] = steps
+    out["pointwise"] = {"builds": p_builds, "launches": p_launches,
+                        "trees_kept": pointwise.forest.n_trees}
+    out["holdout_ndcg5"] = ndcg
+    out["lambdamart_edge"] = ndcg["batched"] - ndcg["pointwise_regression"]
+    for name, fit, kernels in (("batched", train_ranking, HIST_KERNELS),
+                               ("device", train_ranking_device,
+                                FUSED_KERNELS)):
+        prof = profile_training(train, device, fit=fit, kernels=kernels)
+        ph = prof["phases"]
+        lam, trees = ph["gbt/grad_hess"]["total_s"], ph["gbt/tree"]["total_s"]
+        prof["grad_hess_share_of_tree_spans"] = lam / trees
+        prof["grad_hess_share_of_grad_hess_and_trees"] = lam / (lam + trees)
+        out[name]["profile"] = prof
+    out["gates"] = ranking_gates(device)
+    return {"batched": batched, "device": device_model}, out
+
+
+def train_uplift(data: dict, device, **hparams):
+    """The default uplift forest (``UpliftHparams()``: the batched engine,
+    histogram_backend "auto"), trained on ``device``."""
+    from repro_torch.tasks import UpliftTreesLearner
+    return UpliftTreesLearner(label="outcome", seed=LEARNER_SEED,
+                              device=device, **hparams).train(data)
+
+
+def run_uplift(device, backend, n: int = UPLIFT["n"],
+               n_trees: int = UPLIFT_TREES) -> tuple:
+    """The default uplift forest cut to ``n_trees`` trees on the card (tree
+    by tree, every histogram of the four uplift stats built by B3: launches
+    == builds, counts reset just before and read just after), equal to the
+    CPU's run (numpy lockstep blocks) on every Forest field; Qini > 0 on
+    the training rows; growth_engine="device" raises ``YdfError`` on the
+    card too; a traced run of one block. Returns (model, summary)."""
+    from repro_torch.core.api import YdfError
+    from repro_torch.data.tabular import randomized_treatment
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.obs import clock
+    data = randomized_treatment(**{**UPLIFT, "n": n})
+    histogram.LAUNCHES = 0               # the uplift run starts here
+    backend.builds = 0
+    t0 = clock.perf()
+    model = train_uplift(data, device, num_trees=n_trees)
+    seconds = clock.perf() - t0
+    launches, builds = histogram.LAUNCHES, backend.builds   # ... ends here
+    logs = model.training_logs
+    if (logs["growth_engine"], logs.get("histogram_backend")) != (
+            "batched", backend.name):
+        raise AssertionError(f"uplift forest trained with {logs}")
+    if device.type == "cuda" and (builds <= 0 or launches != builds):
+        raise AssertionError(f"uplift: {builds} histogram builds made "
+                             f"{launches} kernel launches")
+    t0 = clock.perf()
+    cpu = train_uplift(data, "cpu", num_trees=n_trees)
+    cpu_seconds = clock.perf() - t0
+    if not identical(model, cpu):
+        raise AssertionError(f"uplift card vs CPU forests differ: "
+                             f"{field_equal(model, cpu)}")
+    ev = model.evaluate(data, device=device)
+    if not ev["qini"] > 0.0:
+        raise AssertionError(f"uplift Qini {ev['qini']} <= 0")
+    try:
+        train_uplift(data, device, num_trees=1, growth_engine="device")
+    except YdfError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("uplift growth_engine='device' trained")
+    f = model.forest
+    prof = profile_training(data, device, fit=train_uplift,
+                            kernels=HIST_KERNELS,
+                            n_trees=logs["tree_parallelism"],
+                            tree_span="uplift/block")
+    return model, {
+        "rows": n, "trees": n_trees,
+        "cut": f"{n_trees} of the default 100 trees",
+        "seconds": seconds, "seconds_per_tree": seconds / n_trees,
+        "cpu_seconds": cpu_seconds, "builds": builds, "launches": launches,
+        "card_equals_cpu": True, "nodes_mean": float(f.n_nodes.mean()),
+        "depth": f.depth, "qini": ev["qini"], "auuc": ev["auuc"],
+        "device_engine_refused": refused, "profile": prof}
+
+
+def run_isolation(device, n_requests: int = 40) -> tuple:
+    """The default isolation forest on planted_anomaly (host numpy
+    training; no kernel) on ``device`` and on the CPU: equal on every
+    Forest field; AUC >= 0.9. Served on the card through
+    ``make_forest_server`` (B2): ``n_requests`` requests of 1 to 300 rows,
+    each equal to ``finalize(predict_naive(encode(batch)))`` bit for bit,
+    and all rows in one dispatch equal to ``finalize`` of the vectorized
+    engine; ``forest_predict(impl="single")`` (B4) equal to the tiled
+    kernel; counts reset just before, read just after. Returns (model,
+    encoded rows, summary)."""
+    import torch
+    from repro_torch.core.dataspec import BatchEncoder
+    from repro_torch.core.tree import compile_predict_raw, predict_naive
+    from repro_torch.data.tabular import planted_anomaly
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    from repro_torch.obs import clock
+    from repro_torch.serving.forest import make_forest_server
+    from repro_torch.tasks import IsolationForestLearner
+    data = planted_anomaly(**ANOMALY)
+    fit = lambda dev: IsolationForestLearner(
+        label="anomaly", seed=LEARNER_SEED, device=dev).train(data)
+    t0 = clock.perf()
+    model = fit(device)
+    seconds = clock.perf() - t0
+    if not identical(model, fit("cpu")):
+        raise AssertionError("isolation forest: card vs CPU training differ")
+    f = model.forest
+    if (f.n_trees, f.max_nodes) != (100, 513) or not 1 <= f.depth <= 8:
+        raise AssertionError(f"isolation forest of {f.n_trees} trees x "
+                             f"{f.max_nodes} nodes, depth {f.depth}")
+    feats = {k: data[k] for k in model.features}
+    X = BatchEncoder(model.spec, model.features).encode(feats)
+    finalize = model._compile_finalize()
+    forest_infer.LAUNCHES = 0            # serving starts here
+    forest_infer.SINGLE_LAUNCHES = 0
+    bundle = make_forest_server(model, device=device)
+    sizes = request_sizes(n_requests, seed=SEED + 2)
+    starts = np.cumsum([0] + sizes[:-1])
+    t0 = clock.perf()
+    answers = [bundle.predict({k: v[s:s + n] for k, v in feats.items()})
+               for s, n in zip(starts, sizes)]
+    req_seconds = clock.perf() - t0
+    for s, n, got in zip(starts, sizes, answers):
+        if not np.array_equal(got, finalize(predict_naive(f, X[s:s + n]))):
+            raise AssertionError(f"isolation request at row {s}: served "
+                                 "answer != host oracle")
+    t0 = clock.perf()
+    every = bundle.predict(feats)
+    all_seconds = clock.perf() - t0
+    if not np.array_equal(every, finalize(compile_predict_raw(f)(X))):
+        raise AssertionError("isolation: all rows served != the vectorized "
+                             "engine")
+    single = ops.forest_predict(f, X, "single", device)
+    tiled = ops.forest_predict(f, X, "cuda", device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if not torch.equal(single, tiled):
+        raise AssertionError("isolation: single-tree traversal != tiled")
+    launches = forest_infer.LAUNCHES     # ... and ends here
+    single_launches = forest_infer.SINGLE_LAUNCHES
+    # one B2 launch a dispatch: the warm-up, the requests, all rows at
+    # once, and the tiled call beside the single-tree one
+    if device.type == "cuda" and (launches != n_requests + 3
+                                  or single_launches != 1):
+        raise AssertionError(f"isolation serving made {launches} B2 and "
+                             f"{single_launches} B4 launches")
+    ev = model.evaluate(data, device=device)
+    if not ev["auc"] >= 0.9:
+        raise AssertionError(f"isolation AUC {ev['auc']} < 0.9")
+    return model, X, {
+        "rows": len(X), "train_seconds": seconds, "card_equals_cpu": True,
+        "trees": f.n_trees, "max_nodes": f.max_nodes, "depth": f.depth,
+        "nodes_mean": float(f.n_nodes.mean()), "auc": ev["auc"],
+        "requests": n_requests, "request_rows": int(sum(sizes)),
+        "requests_seconds": req_seconds, "all_rows_seconds": all_seconds,
+        "tiled_launches": launches, "single_launches": single_launches}
+
+
+def serve_tasks(models: dict, rows: dict, device) -> dict:
+    """The trained ranking and uplift models serve TASK_SERVE_ROWS rows
+    each through ``make_forest_server`` on ``device`` (B2, one padded
+    dispatch after the warm-up), equal to ``model.predict`` on the CPU bit
+    for bit."""
+    from repro_torch.obs import clock
+    from repro_torch.serving.forest import make_forest_server
+    out = {}
+    for name, m in models.items():
+        feats = {k: v[:TASK_SERVE_ROWS] for k, v in rows[name].items()
+                 if k in m.features}
+        bundle = make_forest_server(m, device=device)
+        t0 = clock.perf()
+        got = np.asarray(bundle.predict(feats))
+        seconds = clock.perf() - t0
+        if not np.array_equal(got, m.predict(feats, device="cpu")):
+            raise AssertionError(f"{name}: served answers != model.predict "
+                                 "on the CPU")
+        out[name] = {"rows": len(got), "engine": bundle.predictor.name,
+                     "seconds": seconds}
+    return out
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -2246,6 +2678,7 @@ def main() -> int:
     from repro_torch.core import grower_device
     from repro_torch.core.dataspec import BatchEncoder
     from repro_torch.core.hist_backend import resolve_backend
+    from repro_torch.data.tabular import randomized_treatment
     from repro_torch.kernels.forest_infer import forest_infer, ops
     from repro_torch.kernels.histogram import fused, histogram
     from repro_torch.obs import clock
@@ -2409,6 +2842,27 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
+    # the tasks (ROADMAP A4): LambdaMART through B3 and B1, uplift trees
+    # through B3, the isolation forest and the trained task models served
+    # through B2 and B4
+    ranking_models, ranking_run = run_ranking(device, backend)
+    emit(phase="train_ranking", card=card, **ranking_run)
+    uplift, uplift_run = run_uplift(device, backend)
+    emit(phase="train_uplift", card=card, **uplift_run)
+    isolation, X_iso, iso_run = run_isolation(device)
+    emit(phase="train_isolation", card=card, **iso_run,
+         variants=check_variants(isolation.forest, X_iso, device))
+    forest_infer.LAUNCHES = 0            # serving the task models
+    tasks_served = serve_tasks(
+        {"ranking": ranking_models["batched"], "uplift": uplift},
+        {"ranking": ranking_data()[1],
+         "uplift": randomized_treatment(**UPLIFT)}, device)
+    tasks_launches = forest_infer.LAUNCHES
+    if tasks_launches != 4:
+        raise AssertionError(f"two served models made {tasks_launches} B2 "
+                             "launches (a warm-up and a dispatch each)")
+    emit(phase="serve_tasks", **tasks_served, launches=tasks_launches)
+
     # the single-tree kernel's path: forest_predict(impl="single") on the
     # trained forest and on the default GBT
     X_gbt = encoded_inputs(MAIN_N, seed=12)
@@ -2453,12 +2907,17 @@ def main() -> int:
                                                              X_valid_m)
     tiled_obl = time_tiled(oblique_cases, device)
     single_obl = time_single(oblique_cases, device)
+    iso_case = {f"isolation N={len(X_iso)}": (isolation.forest, X_iso)}
+    tiled_iso = time_tiled(iso_case, device)
+    single_iso = time_single(iso_case, device)
     emit(phase="timings", card=card, **{f"N={n}": row for n, row in timings.items()},
          **{f"fused {k}": row for k, row in fused_t.items()},
          **{f"hist {k}": row for k, row in hist_t.items()},
          **{f"single {k}": row for k, row in single_t.items()},
          **{f"tiled oblique {k}": row for k, row in tiled_obl.items()},
          **{f"single oblique {k}": row for k, row in single_obl.items()},
+         **{f"tiled {k}": row for k, row in tiled_iso.items()},
+         **{f"single {k}": row for k, row in single_iso.items()},
          server_p50_ms=stats["p50_ms"], server_p99_ms=stats["p99_ms"],
          server_rows_per_s=stats["rows_per_s"])
 
@@ -2481,6 +2940,21 @@ def main() -> int:
                 "shape": (f"{main_o}, T={rank1['rf'].forest.n_trees}, "
                           f"M={rank1['rf'].forest.max_nodes}, "
                           f"P={rank1['rf'].forest.obl_weights.shape[-1]}")}
+
+    main_i = next(iter(iso_case))
+
+    def isolation_row(row: dict, launches: int) -> dict:
+        """A kernel's numbers on the isolation forest (train_isolation)."""
+        f = isolation.forest
+        return {"launches": launches, "ms": row["kernel_ms"],
+                "device_ms": row["kernel_device_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "shape": (f"{main_i}, T={f.n_trees}, M={f.max_nodes}, "
+                          f"depth={f.depth}, O=1")}
+    task_hist = {"ranking": ranking_run["batched"]["launches"],
+                 "ranking_pointwise": ranking_run["pointwise"]["launches"],
+                 "uplift": uplift_run["launches"]}
     print(json.dumps({"kernels": [{
         "name": "forest_infer_tiled",
         "route": "cuda",
@@ -2495,6 +2969,10 @@ def main() -> int:
         "shape": f"N={main_n}, B={kern['B']}, TB={kern['TB']}, M={kern['M']}, O=1",
         "oblique": oblique_row(tiled_obl[main_o],
                                rank1_served["tiled_launches"]),
+        "isolation": isolation_row(tiled_iso[main_i],
+                                   iso_run["tiled_launches"]),
+        "task_launches": {"isolation": iso_run["tiled_launches"],
+                          "ranking_and_uplift_served": tasks_launches},
     }, {
         "name": "fused_split",
         "route": "cuda",
@@ -2508,6 +2986,7 @@ def main() -> int:
         "library_ms": None,
         "shape": f"N={FUSED_N}, kf={FUSED_KF}, S=4 (gh), W={main_w[-1]}",
         "launches_per_call": f["launches_per_call"],
+        "task_launches": {"ranking": ranking_run["device"]["launches"]},
     }, {
         "name": "histogram",
         "route": "cuda",
@@ -2522,6 +3001,7 @@ def main() -> int:
         "shape": f"N={HIST_N}, F={HIST_F}, S=4 (gh), n_nodes={main_k[-1]}",
         "launches_per_call": h["launches_per_call"],
         "rank1_launches": {k: v["launches"] for k, v in rank1_run.items()},
+        "task_launches": task_hist,
     }, {
         "name": "forest_single",
         "route": "cuda",
@@ -2537,6 +3017,8 @@ def main() -> int:
                   f"depth={rf.forest.depth}, O={rf.forest.leaf_value.shape[-1]}"),
         "oblique": oblique_row(single_obl[main_o],
                                rank1_served["single_launches"]),
+        "isolation": isolation_row(single_iso[main_i],
+                                   iso_run["single_launches"]),
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 The counterpart of the JAX package ``repro``: the same layout (``core``,
 ``obs``, ``kernels``, ``serving``, ``data``) and the same results. Gradient
-Boosted Trees, Random Forest and CART models train on the card, their
-histograms or split searches in hand-written CUDA kernels
-(``kernels/histogram``), and serve through hand-written traversal kernels
-(``kernels/forest_infer``). The package imports ``torch`` and numpy, never
+Boosted Trees (classification, regression and LambdaMART ranking), Random
+Forest, CART and uplift-tree models train on the card, their histograms or
+split searches in hand-written CUDA kernels (``kernels/histogram``), and
+serve, with isolation forests (``repro_torch.tasks``), through hand-written
+traversal kernels (``kernels/forest_infer``). The package imports ``torch`` and numpy, never
 ``jax`` or ``repro``; models trained by the JAX package arrive as plain
 arrays through ``repro_torch.convert``.
 
@@ -22,8 +23,9 @@ def __getattr__(name):
     # the learners, the model surface and checkpointed training, lazily
     # from repro_torch.core
     if name in ("GradientBoostedTreesLearner", "RandomForestLearner",
-                "CartLearner", "Model", "get_learner", "list_learners",
-                "make_learner", "CheckpointPolicy", "resume_training"):
+                "CartLearner", "UpliftTreesLearner", "IsolationForestLearner",
+                "Model", "get_learner", "list_learners", "make_learner",
+                "CheckpointPolicy", "resume_training"):
         from repro_torch import core
         return getattr(core, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,7 +12,9 @@ The port never sees a ``repro`` object and never unpickles ``model.pkl``
     SUM_SCORE importance sums);
   * the dataspec dict that ``repro.core.dataspec.spec_to_dict`` writes (the
     same as ``dataspec.json`` in a saved model directory);
-  * the feature list, task, classes and, for a GBT, the loss name.
+  * the feature list, task, classes and, for a GBT, the loss name
+    (``LAMBDA_MART_NDCG`` for a ranking GBT); for an uplift forest the
+    treatment column's name, for an isolation forest ``c_psi``.
 
 ``binned_from_arrays`` carries a binned dataset (``BinnedFeatures``) across
 the same way, so both packages can grow trees from the same codes.
@@ -29,7 +31,9 @@ from repro_torch.core.models import (
     CartModel,
     DecisionForestModel,
     GradientBoostedTreesModel,
+    IsolationForestModel,
     RandomForestModel,
+    UpliftModel,
 )
 from repro_torch.core.tree import MASK_WORDS, Forest
 
@@ -113,15 +117,22 @@ def forest_from_arrays(arrays: dict, feature_names: list[str]) -> Forest:
 def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
                       features: list[str], *, task, classes=None,
                       loss: str | None = None,
-                      winner_take_all: bool = True) -> DecisionForestModel:
+                      winner_take_all: bool = True,
+                      treatment_col: str = "treatment",
+                      c_psi: float | None = None) -> DecisionForestModel:
     """The port's model for a reference model's data.
 
-    kind: "gbt", "rf" or "cart". task: a ``Task`` (either package's) or its
-    name. A CART model serves as the reference's does: the mean of its one
-    tree, without winner-take-all.
+    kind: "gbt", "rf", "cart", "uplift" or "isolation". task: a ``Task``
+    (either package's) or its name. A CART model serves as the reference's
+    does: the mean of its one tree, without winner-take-all.
     For a GBT, ``loss`` is the reference loss's ``name`` (``BINOMIAL_LOG_LIKELIHOOD``,
-    ``MULTINOMIAL_LOG_LIKELIHOOD``, ``SQUARED_ERROR``); None derives it from
-    the task and the forest's output dimension."""
+    ``MULTINOMIAL_LOG_LIKELIHOOD``, ``SQUARED_ERROR``, and ``LAMBDA_MART_NDCG``
+    for a ranking model); None derives it from the task and the forest's
+    output dimension. An uplift forest takes the name of its treatment
+    column (``treatment_col``), an isolation forest its ``c_psi`` (the
+    reference model's field: c(psi), the mean path length it normalizes
+    by). Neither keeps a ``tree_class``, as the reference's learners
+    leave it."""
     task = Task(getattr(task, "value", task))
     ds = spec_from_dict(spec)
     absent = [f for f in features if f not in ds.columns]
@@ -135,15 +146,26 @@ def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
         return RandomForestModel(winner_take_all=winner_take_all, **common)
     if kind == "cart":
         return CartModel(winner_take_all=False, **common)
+    if kind == "uplift":
+        forest.tree_class = None
+        return UpliftModel(treatment_col=treatment_col, **common)
+    if kind == "isolation":
+        if c_psi is None:
+            raise YdfError("An isolation forest needs c_psi (the reference "
+                           "model's field); pass c_psi=model.c_psi.")
+        forest.tree_class = None
+        return IsolationForestModel(c_psi=float(c_psi), **common)
     if kind != "gbt":
-        raise YdfError(f"Unknown model kind {kind!r}; expected 'gbt', 'rf' "
-                       "or 'cart'.")
+        raise YdfError(f"Unknown model kind {kind!r}; expected 'gbt', 'rf', "
+                       "'cart', 'uplift' or 'isolation'.")
     if loss is None:
         if task == Task.REGRESSION:
             loss = "SQUARED_ERROR"
         elif task == Task.CLASSIFICATION:
             loss = ("BINOMIAL_LOG_LIKELIHOOD" if forest.out_dim == 1
                     else "MULTINOMIAL_LOG_LIKELIHOOD")
+        elif task == Task.RANKING:
+            loss = "LAMBDA_MART_NDCG"
         else:
             raise YdfError(f"No default GBT loss for task {task.value}; pass "
                            "loss= with the reference model's loss name.")

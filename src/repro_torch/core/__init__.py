@@ -19,6 +19,8 @@ _LAZY = {
     "GradientBoostedTreesLearner": "repro_torch.core.gbt",
     "RandomForestLearner": "repro_torch.core.rf",
     "CartLearner": "repro_torch.core.cart",
+    "UpliftTreesLearner": "repro_torch.tasks.uplift",
+    "IsolationForestLearner": "repro_torch.tasks.isolation",
     "CheckpointPolicy": "repro_torch.train.checkpoint",
     "resume_training": "repro_torch.train.checkpoint",
 }

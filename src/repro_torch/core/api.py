@@ -251,18 +251,23 @@ def _side_column(dataset, name: str, *, task: str, role: str) -> np.ndarray:
 
 
 def _evaluation_extras(model, dataset) -> dict:
-    """Per-task evaluation side-channels, resolved BEFORE inference. The
-    ranking and uplift metrics come with those tasks (ROADMAP A4)."""
-    if model.task in (Task.RANKING, Task.UPLIFT):
-        role = "group/query" if model.task == Task.RANKING else "treatment"
-        col = (getattr(model, "ranking_group", "group")
-               if model.task == Task.RANKING
-               else getattr(model, "treatment_col", "treatment"))
-        _side_column(dataset, col, task=model.task.value.capitalize(),
-                     role=role)
-        raise YdfError(
-            f"{model.task.value} evaluation is not ported yet (ROADMAP A4); "
-            "the port evaluates CLASSIFICATION and REGRESSION models.")
+    """Per-task evaluation side-channels, resolved BEFORE inference."""
+    if model.task == Task.RANKING:
+        col = _side_column(dataset, getattr(model, "ranking_group", "group"),
+                           task="Ranking", role="group/query")
+        groups = np.unique(col.astype(str), return_inverse=True)[1]
+        return {"groups": groups.astype(np.int64)}
+    if model.task == Task.UPLIFT:
+        col = _side_column(dataset, getattr(model, "treatment_col", "treatment"),
+                           task="Uplift", role="treatment")
+        # two-arm normalization: smallest distinct value = control (0)
+        vals, t = np.unique(col.astype(str), return_inverse=True)
+        if len(vals) > 2:
+            raise YdfError(
+                f"Uplift evaluation supports two treatment arms, the "
+                f"treatment column has {len(vals)} distinct values: "
+                f"{list(vals[:5])}...")
+        return {"treatment": t.astype(np.int64)}
     return {}
 
 
@@ -322,7 +327,6 @@ _LEARNERS: dict[str, type] = {}
 # the reference's learners that the port does not train yet, and the
 # ROADMAP item that brings each
 _NOT_PORTED = {
-    "UPLIFT_TREES": "A4", "ISOLATION_FOREST": "A4",
     "HYPERPARAMETER_TUNER": "A6", "ENSEMBLER": "A6", "CALIBRATOR": "A6",
     "FEATURE_SELECTOR": "A6", "LINEAR": "A8",
 }
@@ -383,3 +387,4 @@ def _ensure_builtin() -> None:
         return
     _BUILTIN = True
     from repro_torch.core import cart, gbt, rf  # noqa: F401
+    from repro_torch import tasks  # noqa: F401  (uplift trees, isolation forest)

@@ -1,6 +1,8 @@
 """Model evaluation with confidence intervals (paper §2.2; App. B.3 report
-format), the port's copy of the classification and regression part of
-``repro.core.evaluation``: host numpy over predictions and labels.
+format), the port's copy of ``repro.core.evaluation``: host numpy over
+predictions and labels, for classification, regression, ranking (NDCG@k
+over groups), uplift (Qini and AUUC over treatment arms) and anomaly
+detection (AUC of the anomaly score).
 """
 from __future__ import annotations
 
@@ -28,6 +30,12 @@ class Evaluation:
         """Higher-is-better scalar for model selection."""
         if self.task == Task.CLASSIFICATION:
             return self.metrics["accuracy"]
+        if self.task == Task.RANKING:
+            return self.metrics["ndcg@5"]
+        if self.task == Task.UPLIFT:
+            return self.metrics["qini"]
+        if self.task == Task.ANOMALY:
+            return self.metrics["auc"]
         return -self.metrics["rmse"]
 
     def to_dict(self) -> dict:
@@ -99,9 +107,48 @@ def auc_binary(y: np.ndarray, score: np.ndarray) -> float:
     return float((ranks[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
 
 
+def _ndcg_group(rel: np.ndarray, score: np.ndarray, k: int) -> float:
+    """NDCG@k for one group: DCG = sum (2^rel_i - 1)/log2(i+2) over the top-k
+    by score (descending, stable index tie-break); IDCG sorts by relevance.
+    A group with no relevant item (IDCG == 0) scores 0."""
+    order = np.argsort(-np.asarray(score, np.float64), kind="stable")
+    gains = np.power(2.0, np.asarray(rel, np.float64)) - 1.0
+    disc = 1.0 / np.log2(np.arange(2, min(k, len(rel)) + 2))
+    dcg = float((gains[order[:k]] * disc).sum())
+    ideal = np.sort(gains)[::-1]
+    idcg = float((ideal[:k] * disc).sum())
+    return dcg / idcg if idcg > 0 else 0.0
+
+
+def ndcg_at_k(y: np.ndarray, score: np.ndarray, groups: np.ndarray,
+              k: int = 5) -> float:
+    """Mean NDCG@k over groups (the ranking quality metric, paper §3.1)."""
+    vals = [_ndcg_group(y[idx], score[idx], k)
+            for g in np.unique(groups)
+            for idx in (np.flatnonzero(groups == g),)]
+    return float(np.mean(vals))
+
+
+def qini_curve(y: np.ndarray, score: np.ndarray,
+               treatment: np.ndarray) -> np.ndarray:
+    """Incremental-uplift curve: rows sorted by predicted uplift descending
+    (stable index tie-break); at cut k the value is the treated outcome sum
+    minus the control outcome sum scaled to the treated count,
+    ``yt_k - yc_k * nt_k / max(nc_k, 1)``."""
+    order = np.argsort(-np.asarray(score, np.float64).reshape(-1),
+                       kind="stable")
+    t = np.asarray(treatment, np.float64)[order]
+    yy = np.asarray(y, np.float64)[order]
+    nt, nc = np.cumsum(t), np.cumsum(1.0 - t)
+    yt, yc = np.cumsum(yy * t), np.cumsum(yy * (1.0 - t))
+    return yt - yc * nt / np.maximum(nc, 1.0)
+
+
 def evaluate_predictions(task: Task, pred: np.ndarray, y: np.ndarray, *,
                          classes: list[str] | None = None,
-                         source: str = "test") -> Evaluation:
+                         source: str = "test",
+                         groups: np.ndarray | None = None,
+                         treatment: np.ndarray | None = None) -> Evaluation:
     n = len(y)
     if n == 0:
         raise YdfError("Cannot evaluate on an empty dataset.")
@@ -134,8 +181,35 @@ def evaluate_predictions(task: Task, pred: np.ndarray, y: np.ndarray, *,
         m["mae"] = float(np.mean(np.abs(err)))
         denom = max(np.var(y), 1e-12)
         m["r2"] = float(1.0 - np.mean(np.square(err)) / denom)
+    elif task == Task.RANKING:
+        if groups is None:
+            raise YdfError(
+                "Ranking evaluation requires per-example group ids. Solution: "
+                "pass groups= (Model.evaluate extracts them from the group "
+                "column automatically).")
+        pred = np.asarray(pred).reshape(-1)
+        for k in (1, 5, 10):
+            m[f"ndcg@{k}"] = ndcg_at_k(y, pred, groups, k)
+        m["n_groups"] = float(len(np.unique(groups)))
+    elif task == Task.UPLIFT:
+        if treatment is None:
+            raise YdfError(
+                "Uplift evaluation requires per-example treatment assignment. "
+                "Solution: pass treatment= (Model.evaluate extracts it from "
+                "the treatment column automatically).")
+        pred = np.asarray(pred).reshape(-1)
+        g = qini_curve(y, pred, np.asarray(treatment))
+        # areas normalized per example: auuc is the mean curve height / n,
+        # qini subtracts the random-targeting straight line to g[-1]
+        m["auuc"] = float(g.mean()) / n
+        m["qini"] = float(g.mean() - g[-1] * (n + 1) / (2 * n)) / n
+    elif task == Task.ANOMALY:
+        pred = np.asarray(pred).reshape(-1)
+        # label = 1 for planted/true anomalies; higher score = more anomalous
+        m["auc"] = auc_binary((np.asarray(y, np.float64) == 1).astype(np.int64),
+                              pred)
+        m["mean_score"] = float(pred.mean())
     else:
-        raise YdfError(f"Evaluation for task={task} is not ported yet; the "
-                       "port evaluates CLASSIFICATION and REGRESSION.")
+        raise YdfError(f"Evaluation for task={task} not implemented.")
     return Evaluation(task=task, n_examples=n, metrics=m, confusion=confusion,
                       classes=classes, source=source)

@@ -23,7 +23,14 @@ which also sets BEST_FIRST_GLOBAL growth and RANDOM categorical splits)
 adds a sparse-oblique projection pass per node on the host; its
 configurations resolve to the batched engine, whose axis-aligned
 histograms still go through the histogram backend (the CUDA kernel on the
-card). Not ported yet: the ranking task.
+card).
+
+``task=RANKING`` trains LambdaMART (``repro_torch.tasks.ranking``): the
+validation split keeps every group whole, the loss holds the train and
+validation group layouts, and its lambda pass (host numpy, bit-identical
+to the reference, inside the ``gbt/grad_hess`` span) gives the gh stats
+that every engine then grows trees from. The model keeps only the loss's
+serving head and the group column's name (``ranking_group``).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.api import Learner, Task, YdfError, register_learner
+from repro_torch.core.dataspec import VerticalDataset
 from repro_torch.core.evaluation import evaluate_predictions
 from repro_torch.core.grower import GrowthParams, grow_tree, resolve_engine
 from repro_torch.core.grower_device import _resolve_impl
@@ -68,24 +76,35 @@ class GradientBoostedTreesLearner(Learner):
               ) -> GradientBoostedTreesModel:
         from repro_torch.core.engines import resolve_device
         from repro_torch.core.rf import training_data_fingerprint
-        if self.task not in (Task.CLASSIFICATION, Task.REGRESSION):
-            raise YdfError(
-                f"GBT training for task={self.task.value} is not ported yet; "
-                "the port trains CLASSIFICATION and REGRESSION.")
+        # the tasks package registers learners that import this module
+        from repro_torch.tasks.ranking import (
+            LambdaMARTLoss,
+            group_aware_split,
+            group_layout,
+        )
         device = resolve_device(self.device)
         hp: GBTHparams = self.hparams
         rng = np.random.default_rng(self.seed)
         td = prepare_train_data(self, dataset, max_bins=hp.max_bins)
 
-        # §3.3: extract validation from train when early stopping needs one
+        # §3.3: extract validation from train when early stopping needs one.
+        # Ranking keeps every group WHOLE on one side of the split — a torn
+        # group corrupts both its lambda pairs and its NDCG.
+        groups_v = None
         if valid is not None:
             train_idx = np.arange(td.ds.n_rows)
-            Xv, yv, wv = _encode_eval_set(self, td, valid)
+            Xv, yv, wv, groups_v = _encode_eval_set(self, td, valid)
         elif hp.early_stopping != "NONE" and hp.validation_ratio > 0:
-            train_idx, valid_idx = extract_validation(
-                td.ds.n_rows, hp.validation_ratio, self.seed)
+            if self.task == Task.RANKING:
+                train_idx, valid_idx = group_aware_split(
+                    td.groups, hp.validation_ratio, self.seed)
+            else:
+                train_idx, valid_idx = extract_validation(
+                    td.ds.n_rows, hp.validation_ratio, self.seed)
             Xv, yv = td.X_raw[valid_idx], td.y[valid_idx]
             wv = td.w[valid_idx]
+            if td.groups is not None:
+                groups_v = td.groups[valid_idx]
         else:
             train_idx = np.arange(td.ds.n_rows)
             Xv = yv = wv = None
@@ -93,7 +112,17 @@ class GradientBoostedTreesLearner(Learner):
         sub_td = _subset_td(td, train_idx)
         N = len(train_idx)
         y, w = sub_td.y, sub_td.w
-        loss = make_loss(self.task, hp.loss, td.n_classes)
+        if self.task == Task.RANKING:
+            # built here, not in make_loss: the loss owns the train/valid
+            # group layouts, which only exist after the split above. It
+            # tells them apart by the IDENTITY of the label array, so the
+            # loop below passes these very ``y`` and ``yv`` objects.
+            loss = LambdaMARTLoss(
+                y, group_layout(sub_td.groups), k=hp.ndcg_truncation,
+                y_valid=yv,
+                layout_valid=None if yv is None else group_layout(groups_v))
+        else:
+            loss = make_loss(self.task, hp.loss, td.n_classes)
         K = loss.out_dim
 
         max_nodes = (hp.max_num_nodes if hp.growing_strategy == "BEST_FIRST_GLOBAL"
@@ -231,11 +260,17 @@ class GradientBoostedTreesLearner(Learner):
             self_eval = evaluate_predictions(
                 self.task, loss.activation(pred_v), yv,
                 classes=td.classes if self.task == Task.CLASSIFICATION else None,
+                groups=groups_v,
                 source="validation")
+        # a loss that holds training-set state (LambdaMART's group layouts)
+        # ships its stripped serving head instead
+        model_loss = loss.serving_head() if hasattr(loss, "serving_head") else loss
         model = GradientBoostedTreesModel(
-            loss=loss, forest=forest, spec=td.ds.spec, features=td.features,
-            label=self.label, task=self.task, classes=td.classes,
-            self_evaluation=self_eval)
+            loss=model_loss, forest=forest, spec=td.ds.spec,
+            features=td.features, label=self.label, task=self.task,
+            classes=td.classes, self_evaluation=self_eval)
+        if self.task == Task.RANKING:
+            model.ranking_group = hp.ranking_group
         model.training_logs = build_training_logs(
             learner="gbt", num_trees=forest.n_trees // K,
             growth_engine=engine_used, engine_fallback=engine_fallback,
@@ -275,7 +310,10 @@ def _one_tree(forest: Forest, t: int) -> Forest:
 
 def _encode_eval_set(learner, td: TrainData, valid):
     """Encode an external validation set with the TRAINING dataspec so class
-    indices and imputation match (paper §3.3 external-valid path)."""
+    indices and imputation match (paper §3.3 external-valid path). For
+    ranking the 4th return is the valid set's group ids (else None), read
+    from the RAW column — the training vocabulary must not collapse unseen
+    validation groups into one out-of-dictionary bucket."""
     vds = _as_vertical(valid, td.ds.spec)
     Xv = raw_matrix(vds, td.features)
     if learner.task == Task.CLASSIFICATION:
@@ -287,12 +325,26 @@ def _encode_eval_set(learner, td: TrainData, valid):
         yv = (enc - 1).astype(np.int32)
     else:
         yv = vds.numerical[learner.label].astype(np.float64)
-    return Xv, yv, np.ones(len(yv), np.float64)
+    groups_v = None
+    if learner.task == Task.RANKING:
+        gcol = learner.hparams.ranking_group
+        if isinstance(valid, VerticalDataset):
+            col = np.asarray(valid.column(gcol))
+        else:
+            if gcol not in valid:
+                raise YdfError(
+                    f'Ranking validation set is missing the group column '
+                    f'"{gcol}".')
+            col = np.asarray(valid[gcol], dtype=object).ravel()
+        groups_v = np.unique(col.astype(str),
+                             return_inverse=True)[1].astype(np.int64)
+    return Xv, yv, np.ones(len(yv), np.float64), groups_v
 
 
 def _subset_td(td: TrainData, idx: np.ndarray) -> TrainData:
     if len(idx) == td.ds.n_rows and (idx == np.arange(len(idx))).all():
         return td
     binned = dataclasses.replace(td.binned, codes=td.binned.codes[idx])
-    return dataclasses.replace(td, binned=binned, X_raw=td.X_raw[idx],
-                               y=td.y[idx], w=td.w[idx])
+    return dataclasses.replace(
+        td, binned=binned, X_raw=td.X_raw[idx], y=td.y[idx], w=td.w[idx],
+        groups=None if td.groups is None else td.groups[idx])

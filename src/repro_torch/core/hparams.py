@@ -1,6 +1,6 @@
 """Hyper-parameters with paper-exact defaults (App. C.1) and versioned
-templates (§3.11), the port's copy of the GBT, Random Forest and CART parts
-of ``repro.core.hparams``: defaults never change; newer methods are opt-in;
+templates (§3.11), the port's copy of the GBT, Random Forest, CART, uplift
+and isolation-forest parts of ``repro.core.hparams``: defaults never change; newer methods are opt-in;
 templates like ``benchmark_rank1@v1`` bundle the best-known settings per
 version.
 """
@@ -77,6 +77,35 @@ class CartHparams:
     max_bins: int = 255
     growth_engine: str = "batched"          # batched | oracle | device (§6)
     histogram_backend: str = "auto"         # auto | numpy | simple | cuda | torch
+
+
+@dataclass(frozen=True)
+class UpliftHparams:
+    """Honest uplift trees (task=UPLIFT, DESIGN.md §12.2): RF-style growth
+    over the "uplift" splitter statistics — per-node treated/control outcome
+    sums scored by the Euclidean-distance gain n*(p_t - p_c)^2."""
+    num_trees: int = 100
+    max_depth: int = 8
+    min_examples: int = 20                  # per node, BOTH arms pooled
+    num_candidate_attributes: str = "SQRT"
+    bootstrap: bool = True
+    max_num_nodes: int = 4096
+    max_bins: int = 255
+    treatment: str = "treatment"            # 0/1 treatment column name
+    growth_engine: str = "batched"          # batched | oracle (device: no uplift scores)
+    histogram_backend: str = "auto"         # auto | numpy | simple | cuda | torch
+    tree_parallelism: int = 8
+
+
+@dataclass(frozen=True)
+class IsolationForestHparams:
+    """Isolation forest (task=ANOMALY, DESIGN.md §12.3; Liu et al. 2008).
+    Random splits, no histograms: the splitter never scans gains, so the
+    grower seam is bypassed and trees are written straight into the Forest
+    SoA, then served through the ordinary compiled engines."""
+    num_trees: int = 100
+    subsample_count: int = 256              # psi: rows sampled per tree
+    max_depth: int = 0                      # 0 = ceil(log2(subsample_count))
 
 
 # ---------------------------------------------------------------- templates

@@ -2,7 +2,7 @@
 the reference): initial prediction, per-example gradients and hessians,
 the loss value (read by early stopping) and the output head
 (``activation``). Scores are raw (logits) per output dimension, shaped
-(N, out_dim).
+(N, out_dim). The ranking loss lives in ``repro_torch.tasks.ranking``.
 """
 from __future__ import annotations
 
@@ -112,19 +112,28 @@ def make_loss(task: Task, loss_name: str, n_classes: int) -> Loss:
                 f"{n_classes}. Solutions: (1) check the label column, or (2) "
                 "use task=REGRESSION for numerical targets.")
         return Binomial() if n_classes == 2 else Multinomial(n_classes)
+    # RANKING is handled by gbt.py directly (repro_torch.tasks.ranking.
+    # LambdaMARTLoss needs the group layout, which make_loss does not see)
     raise YdfError(
-        f"GBT does not support task={task}. Supported by the port: "
-        "CLASSIFICATION, REGRESSION (RANKING is not ported yet).")
+        f"GBT does not support task={task}. Supported: CLASSIFICATION, "
+        "REGRESSION, RANKING. For UPLIFT use UPLIFT_TREES, for ANOMALY use "
+        "ISOLATION_FOREST.")
 
 
 def loss_by_name(name: str, out_dim: int) -> Loss:
-    """The head for a loss name as the reference's ``Loss.name`` spells it."""
+    """The head for a loss name as the reference's ``Loss.name`` spells it.
+    A ranking model gets LambdaMART's serving head (the training loss holds
+    the group layouts, which a trained model does not keep)."""
+    from repro_torch.tasks.ranking import RankingActivation
     if name == Binomial.name:
         return Binomial()
     if name == Multinomial.name:
         return Multinomial(out_dim)
     if name == SquaredError.name:
         return SquaredError()
+    if name == RankingActivation.name:
+        return RankingActivation()
+    served = [Binomial.name, Multinomial.name, SquaredError.name,
+              RankingActivation.name]
     raise YdfError(
-        f"Unknown or unsupported GBT loss {name!r}. The port serves "
-        f"{[Binomial.name, Multinomial.name, SquaredError.name]}.")
+        f"Unknown or unsupported GBT loss {name!r}. The port serves {served}.")

@@ -4,7 +4,7 @@
 A ``DecisionForestModel`` holds a Forest SoA, the training DataSpec and
 feature list, and routes ``predict`` through a compiled predictor
 (core/engines.py). Models come from the port's learners (core/gbt.py,
-core/rf.py, core/cart.py), from a saved model directory (``Model.load``)
+core/rf.py, core/cart.py, tasks/), from a saved model directory (``Model.load``)
 or from the JAX package through ``repro_torch.convert``.
 ``prepare_train_data`` turns a raw dataset into the binned codes, raw
 matrix and labels a learner trains on (host numpy, as in the reference).
@@ -12,6 +12,7 @@ matrix and labels a learner trains on (host numpy, as in the reference).
 A saved decision forest is plain data: ``forest.npz`` holds every Forest
 array that is not None, and ``model.json`` the rest (task, label,
 features, classes, the GBT loss name, ``winner_take_all``, ``bag_info``,
+the task fields ``ranking_group``, ``treatment_col`` and ``c_psi``,
 ``training_logs``, the self-evaluation and the Forest's scalars). Loading
 builds the model through ``convert.model_from_arrays``, the constructors
 that carry a JAX-trained model across.
@@ -54,6 +55,9 @@ class TrainData:
     classes: list[str] | None
     num_lo: np.ndarray         # per numerical feature: min (oblique min-max)
     num_hi: np.ndarray
+    # task side-channels (DESIGN.md §12): never input features
+    groups: np.ndarray | None = None     # (N,) int64 ranking group ids
+    treatment: np.ndarray | None = None  # (N,) int64 uplift arm (0=control)
 
 
 def _as_vertical(dataset, spec: DataSpec | None = None) -> VerticalDataset:
@@ -85,19 +89,44 @@ def raw_matrix(ds: VerticalDataset, features: list[str]) -> np.ndarray:
 
 def prepare_train_data(learner, dataset, *, features: list[str] | None = None,
                        max_bins: int = 255) -> TrainData:
-    """Classification and regression training data (the ranking and uplift
-    side channels come with those tasks' learners)."""
     ds = _as_vertical(dataset)
     label = learner.label
     if label not in ds.spec.columns:
         raise YdfError(
             f'Label column "{label}" not found in the training dataset. '
             f"Available columns: {sorted(ds.spec.columns)}.")
-    if learner.task not in (Task.CLASSIFICATION, Task.REGRESSION):
-        raise YdfError(
-            f"Training for task={learner.task.value} is not ported yet; the "
-            "port trains CLASSIFICATION and REGRESSION models.")
-    feats = ds.spec.feature_names(label, features)
+    # task side-channel columns (ranking group / uplift treatment) are
+    # extracted here and NEVER become input features — a model that splits
+    # on its own query id or treatment assignment is leakage, not learning
+    exclude: list[str] = []
+    groups = treatment = None
+    if learner.task == Task.RANKING:
+        gcol = getattr(learner.hparams, "ranking_group", "group")
+        if gcol not in ds.spec.columns:
+            raise YdfError(
+                f'Ranking training requires the group/query column "{gcol}" '
+                f"in the dataset. Available columns: {sorted(ds.spec.columns)}. "
+                "Solution: add the column, or point ranking_group= at it.")
+        exclude.append(gcol)
+        groups = np.unique(np.asarray(ds.column(gcol)).astype(str),
+                           return_inverse=True)[1].astype(np.int64)
+    elif learner.task == Task.UPLIFT:
+        tcol = getattr(learner.hparams, "treatment", "treatment")
+        if tcol not in ds.spec.columns:
+            raise YdfError(
+                f'Uplift training requires the treatment column "{tcol}" in '
+                f"the dataset. Available columns: {sorted(ds.spec.columns)}. "
+                "Solution: add the column, or point treatment= at it.")
+        exclude.append(tcol)
+        vals, t = np.unique(np.asarray(ds.column(tcol)).astype(str),
+                            return_inverse=True)
+        if len(vals) != 2:
+            raise YdfError(
+                f'Uplift treatment column "{tcol}" must have exactly two '
+                f"distinct values (control, treated); found {len(vals)}: "
+                f"{list(vals[:5])}.")
+        treatment = t.astype(np.int64)
+    feats = ds.spec.feature_names(label, features, exclude=exclude)
     col = ds.spec[label]
     if learner.task == Task.CLASSIFICATION:
         check_classification_label(col, learner.task)
@@ -117,13 +146,22 @@ def prepare_train_data(learner, dataset, *, features: list[str] | None = None,
                 "in the training set; every training example must be labeled.")
         y = (y_enc - 1).astype(np.int32)
     else:
-        if col.semantic != Semantic.NUMERICAL:
+        task_name = learner.task.value.capitalize()
+        if col.semantic == Semantic.BOOLEAN and learner.task == Task.UPLIFT:
+            # binary outcomes are the normal uplift case; codes are 0/1
+            y = ds.column(label).astype(np.float64)
+            if (y < 0).any():
+                raise YdfError(
+                    f'{task_name} label "{label}" contains missing values.')
+        elif col.semantic != Semantic.NUMERICAL:
             raise YdfError(
-                f'Regression training requires a NUMERICAL label, but "{label}" '
+                f'{task_name} training requires a NUMERICAL label, but "{label}" '
                 f"is {col.semantic.value}. Solution: use task=CLASSIFICATION.")
-        y = ds.numerical[label].astype(np.float64)
-        if np.isnan(y).any():
-            raise YdfError(f'Regression label "{label}" contains missing values.')
+        else:
+            y = ds.numerical[label].astype(np.float64)
+            if np.isnan(y).any():
+                raise YdfError(
+                    f'{task_name} label "{label}" contains missing values.')
         classes, n_classes = None, 0
     with trace.span("grower/binning", rows=ds.n_rows, features=len(feats)):
         binned = bin_features(ds, feats, max_bins=max_bins)
@@ -138,7 +176,8 @@ def prepare_train_data(learner, dataset, *, features: list[str] | None = None,
     w = np.ones(ds.n_rows, np.float64)
     return TrainData(ds=ds, features=feats, binned=binned, X_raw=X_raw, y=y,
                      w=w, n_classes=n_classes, classes=classes,
-                     num_lo=num_lo, num_hi=num_hi)
+                     num_lo=num_lo, num_hi=num_hi,
+                     groups=groups, treatment=treatment)
 
 
 def extract_validation(n: int, ratio: float, seed: int) -> tuple[np.ndarray, np.ndarray]:
@@ -191,7 +230,7 @@ class DecisionForestModel(Model):
     def predict(self, dataset, *, engine: str | None = None,
                 device=None) -> np.ndarray:
         """Raw request columns -> predictions. Classification: (N, n_classes)
-        probabilities; regression: (N,)."""
+        probabilities; regression, ranking, uplift and anomaly: (N,)."""
         return self.predictor(engine, device).predict(dataset)
 
     def _scores(self, dataset, engine=None, device=None) -> np.ndarray:
@@ -263,6 +302,9 @@ class DecisionForestModel(Model):
             "loss": getattr(getattr(self, "loss", None), "name", None),
             "winner_take_all": getattr(self, "winner_take_all", None),
             "bag_info": getattr(self, "bag_info", None),
+            "ranking_group": getattr(self, "ranking_group", None),
+            "treatment_col": getattr(self, "treatment_col", None),
+            "c_psi": getattr(self, "c_psi", None),
             "training_logs": self.training_logs,
             "self_evaluation": None if ev is None else ev.to_dict(),
         }
@@ -275,7 +317,8 @@ _FOREST_ARRAYS = ("feature", "threshold", "cat_mask", "left_child",
                   "leaf_value", "n_nodes", "tree_class", "init_pred",
                   "split_bin", "split_gain", "obl_weights", "obl_features")
 _KIND_OF = {"GradientBoostedTreesModel": "gbt", "RandomForestModel": "rf",
-            "CartModel": "cart"}
+            "CartModel": "cart", "UpliftModel": "uplift",
+            "IsolationForestModel": "isolation"}
 
 
 def load_forest_model(path: str, meta: dict) -> DecisionForestModel:
@@ -316,12 +359,16 @@ def load_forest_model(path: str, meta: dict) -> DecisionForestModel:
     model = model_from_arrays(
         kind, arrays, spec, fields["features"], task=fields["task"],
         classes=fields["classes"], loss=fields["loss"],
-        winner_take_all=bool(fields["winner_take_all"]))
+        winner_take_all=bool(fields["winner_take_all"]),
+        treatment_col=fields.get("treatment_col") or "treatment",
+        c_psi=fields.get("c_psi"))
     model.label = fields["label"]
+    if fields.get("ranking_group") is not None:
+        model.ranking_group = fields["ranking_group"]
     model.training_logs = fields["training_logs"]
     if fields["self_evaluation"] is not None:
         model.self_evaluation = Evaluation.from_dict(fields["self_evaluation"])
-    if kind != "gbt":
+    if kind in ("rf", "cart"):
         model.bag_info = fields["bag_info"]
     return model
 
@@ -359,6 +406,32 @@ class CartModel(RandomForestModel):
     pass
 
 
+class UpliftModel(DecisionForestModel):
+    """Honest uplift forest (DESIGN.md §12.2): every leaf stores the local
+    treatment effect p_t - p_c; predict() averages leaves over trees, so the
+    output is the per-example estimated uplift (positive = treat)."""
+
+    def __init__(self, *, treatment_col: str = "treatment", **kw):
+        super().__init__(**kw)
+        self.treatment_col = treatment_col
+
+    def _compile_finalize(self):
+        return _RfFinalize(False, True)   # mean over trees, scalar output
+
+
+class IsolationForestModel(DecisionForestModel):
+    """Isolation forest (DESIGN.md §12.3): leaves store the path length
+    depth + c(n); predict() maps the mean path length h through the anomaly
+    score 2^(-h / c(psi)) — near 1 for anomalies, well below 1 for inliers."""
+
+    def __init__(self, *, c_psi: float, **kw):
+        super().__init__(**kw)
+        self.c_psi = c_psi
+
+    def _compile_finalize(self):
+        return _IsolationFinalize(self.c_psi)
+
+
 @dataclass
 class _GbtFinalize:
     loss: Loss
@@ -376,3 +449,13 @@ class _RfFinalize:
     def __call__(self, per_tree: np.ndarray) -> np.ndarray:
         out = aggregate_rf(per_tree, self.wta)
         return out[:, 0] if self.regression else out
+
+
+@dataclass
+class _IsolationFinalize:
+    c_psi: float
+
+    def __call__(self, per_tree: np.ndarray) -> np.ndarray:
+        # per_tree: (N, T, 1) path lengths; Liu et al. 2008 eq. 2
+        h = np.asarray(per_tree)[..., 0].mean(axis=1)
+        return np.power(2.0, -h / max(self.c_psi, 1e-12))

@@ -8,6 +8,7 @@ engines (core/grower.py) scan the histograms that a backend
   * "gh"     — [grad, hess, ..., count]       (GBT, any smooth loss)
   * "class"  — [count_class_0..C-1, count]    (RF/CART classification)
   * "moment" — [sum_y, sum_y^2, count]        (RF/CART regression)
+  * "uplift" — [sum_y_treated, n_treated, sum_y_control, count] (uplift trees)
 
 Feature-type modules: numerical (ordered-bin scan), categorical CART
 (Fisher-ordered prefix scan), categorical RANDOM (random-set projections,
@@ -116,6 +117,17 @@ def _score(stats: np.ndarray, kind: str, l2: float) -> np.ndarray:
     if kind == "moment":
         sy, sy2, n = stats[..., 0], stats[..., 1], stats[..., 2]
         return np.square(sy) / np.maximum(n, 1e-12) - 0.0 * sy2  # -SSE + const
+    if kind == "uplift":
+        # [sum_y_treated, n_treated, sum_y_control, n] — Euclidean-distance
+        # uplift gain (DESIGN.md §12.2): n * (p_t - p_c)^2, additive over
+        # children; a child with an empty arm contributes 0 (no estimate)
+        st, nt, sc, n = (stats[..., 0], stats[..., 1],
+                         stats[..., 2], stats[..., 3])
+        ncb = n - nt
+        pt = st / np.maximum(nt, 1e-12)
+        pc = sc / np.maximum(ncb, 1e-12)
+        both = (nt > 0) & (ncb > 0)
+        return np.where(both, n * np.square(pt - pc), 0.0)
     raise ValueError(kind)
 
 
@@ -130,6 +142,11 @@ def _order_key(stats: np.ndarray, kind: str) -> np.ndarray:
         return stats[..., 0] / np.maximum(stats[..., 1], 1e-12)
     if kind == "class":
         return stats[..., 1] / n  # P(second class); multiclass handled by caller
+    if kind == "uplift":
+        # per-bin treatment-effect estimate p_t - p_c orders categories
+        pt = stats[..., 0] / np.maximum(stats[..., 1], 1e-12)
+        pc = stats[..., 2] / np.maximum(n - stats[..., 1], 1e-12)
+        return pt - pc
     return stats[..., 0] / n      # mean target
 
 

@@ -27,7 +27,14 @@ resumed on the card equals the uninterrupted card run on every Forest
 field (no tolerance: the kernels' sums are exact, so card runs repeat).
 Both traversal kernels serve sparse-oblique forests bit for bit with their
 plain versions and the vectorized engine, whose projection sums follow
-numpy's pairwise order as the kernels do.
+numpy's pairwise order as the kernels do. The tasks: an uplift forest
+trained on the card equals the CPU's on every field; a LambdaMART GBT on
+the batched engine too, but for ``split_gain``, within
+``chip_smoke.GAIN_RTOL`` of the CPU's (its stats are float gradients,
+which the histogram kernel's fixed-point sums round); the device engine's
+LambdaMART repeats its bits and agrees on >= 99.5% of each structure
+field; an isolation forest serves through both traversal kernels bit for
+bit with ``predict_naive``.
 """
 from __future__ import annotations
 
@@ -585,3 +592,76 @@ def test_oblique_forest_trained_on_the_card_serves_through_the_kernels(
     assert r["max_abs_err"] == 0.0
     out = chip_smoke.serve_rank1({"rf": card}, rows, cuda, str(tmp_path))
     assert out["tiled_launches"] == out["single_launches"] == 1
+
+
+# ------------------------------------------------------- the tasks (A4)
+
+def test_ranking_forests_trained_on_the_card_equal_the_cpu(cuda):
+    """LambdaMART, short: the batched engine (B3, launches == builds)
+    equals the CPU's numpy run on every field but ``split_gain``, which
+    agrees within ``chip_smoke.GAIN_RTOL`` (``equal_but_gain``: B3's
+    fixed-point rounding of float gradients), with equal loss logs; the
+    device engine (B1) repeats its bits and agrees with the CPU's plain
+    version on >= 99.5% of each structure field."""
+    import chip_smoke
+    from repro_torch.core.hist_backend import resolve_backend
+    from repro_torch.kernels.histogram import histogram
+    train, _ = chip_smoke.ranking_data(400)
+    backend = resolve_backend("auto", cuda)
+    histogram.LAUNCHES, backend.builds = 0, 0
+    card = chip_smoke.train_ranking(train, cuda, num_trees=6)
+    assert histogram.LAUNCHES == backend.builds > 0
+    cpu = chip_smoke.train_ranking(train, "cpu", num_trees=6)
+    chip_smoke.equal_but_gain(card, cpu)
+    assert card.training_logs["valid_loss"] == cpu.training_logs["valid_loss"]
+    kw = dict(num_trees=4)
+    a = chip_smoke.train_ranking_device(train, cuda, **kw)
+    b = chip_smoke.train_ranking_device(train, cuda, **kw)
+    c = chip_smoke.train_ranking_device(train, "cpu", **kw)
+    assert a.training_logs["device_impl"] == "cuda"
+    assert chip_smoke.identical(a, b)
+    assert min(chip_smoke.agreement(a, c).values()) >= 0.995
+
+
+def test_uplift_forest_trained_on_the_card_equals_the_cpu(cuda):
+    """Uplift trees, short: B3 builds every histogram of the four uplift
+    stats (launches == builds), the forest equals the CPU's lockstep run
+    on every field, and the device engine is refused."""
+    import chip_smoke
+    from repro_torch.core import YdfError
+    from repro_torch.core.hist_backend import resolve_backend
+    from repro_torch.data.tabular import randomized_treatment
+    from repro_torch.kernels.histogram import histogram
+    data = randomized_treatment(n=5_000, seed=11)
+    backend = resolve_backend("auto", cuda)
+    histogram.LAUNCHES, backend.builds = 0, 0
+    card = chip_smoke.train_uplift(data, cuda, num_trees=4)
+    assert card.training_logs["histogram_backend"] == "cuda"
+    assert histogram.LAUNCHES == backend.builds > 0
+    assert chip_smoke.identical(card, chip_smoke.train_uplift(
+        data, "cpu", num_trees=4))
+    with pytest.raises(YdfError, match="growth_engine='batched'"):
+        chip_smoke.train_uplift(data, cuda, num_trees=1,
+                                growth_engine="device")
+
+
+def test_isolation_forest_serves_through_both_kernels(cuda):
+    """The isolation forest's shape (513-node capacity, depth <= 8,
+    path-length leaves) through B2 and B4 in each plan variant: equal to
+    their plain versions and to ``predict_naive``; served through the
+    bundle equal to ``finalize(predict_naive(...))``."""
+    import chip_smoke
+    from repro_torch.core.tree import predict_naive
+    from repro_torch.data.tabular import planted_anomaly
+    from repro_torch.serving.forest import make_forest_server
+    from repro_torch.tasks import IsolationForestLearner
+    data = planted_anomaly(n_inlier=3_000, n_anomaly=120, seed=13)
+    model = IsolationForestLearner(label="anomaly", device=cuda).train(data)
+    bundle = make_forest_server(model, device=cuda)
+    feats = {k: data[k] for k in model.features}
+    X = bundle.predictor.encode(feats)
+    r = chip_smoke.check_variants(model.forest, X, cuda)
+    assert r["max_abs_err"] == 0.0
+    want = model._compile_finalize()(predict_naive(model.forest, X[:600]))
+    got = bundle.predict({k: v[:600] for k, v in feats.items()})
+    np.testing.assert_array_equal(got, want)
