@@ -17,7 +17,8 @@ run the single-tree traversal kernel on the trained forest and the GBT;
 train the paper's best settings, the benchmark_rank1 GBT and Random
 Forest (sparse-oblique splits; 2 trees each), and serve them through both
 traversal kernels; and train the tasks (LambdaMART ranking through both
-histogram kernels, uplift trees, an isolation forest) and serve them.
+histogram kernels, uplift trees, an isolation forest) and serve them; serve
+through the depth-bucketed engines and the asyncio front end.
 The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
@@ -225,6 +226,45 @@ JSON line each:
                      ``make_forest_server`` (B2), equal to ``model.predict``
                      on the CPU bit for bit.
 
+ 26. serve_bucketed — the depth-bucketed engines (ROADMAP A5, PyTorch
+                     tensor code, no kernel of their own): "bucketed" (each
+                     bucket's strategy from the card's cost model,
+                     ``ops.MATMUL_CHEAP``), "leaf_path" (with TF32 matmuls
+                     allowed and not) and the scan forced, over the serving
+                     GBT at 4,096 rows, the trained device-engine GBT, the
+                     trained RF (leaf_path gated out by LEAF_PATH_BUDGET,
+                     asserted), the isolation, uplift and LambdaMART
+                     models and the zoo of ``traversal_cases`` (hostile
+                     rows, codes 0/31/32/255, 16,384-node trees, O = 3):
+                     each answer ``array_equal`` to ``predict_naive`` and
+                     to the cuda engine (B2, counted); an oblique rank1
+                     model asked for "bucketed" raises YdfError naming the
+                     compatible engines.
+ 27. serve_async   — ``AsyncForestServer`` over a ``ForestServer`` with the
+                     default chain (["cuda"]) on the serving GBT: ~50
+                     concurrent raw-column requests of 1 to 300 rows fanned
+                     in with ``asyncio.gather`` against a queue cap that
+                     sheds the number the admission rule gives, every
+                     answer equal to ``finalize(predict_naive(encode(batch)))``,
+                     B2 launched once a dispatch (counts reset just before,
+                     read just after); the same requests through a bundle
+                     warmed by ``warm_ladder(up_to=1024)``; a bulk sweep of
+                     BULK_ROWS rows through ``predict_encoded_bulk`` in
+                     BULK_CHUNK-row chunks equal to one direct call; a
+                     ``CompiledPredictor`` on the bucketed engine pickled
+                     and loaded on the card, its engine kept, its answers
+                     equal.
+
+train_uplift also trains the numerical-outcome case (``numerical_uplift``)
+and holds it to the CPU with ``equal_but_gain``. After the timings phase,
+``timings_bucketed`` times the bucketed engines (auto, scan and leaf_path
+forced: the whole ``engine.per_tree`` and the device time) beside the cuda
+engine, B2 and B4 on the same rows (the serving GBT at TIMED_SIZES, the
+trained RF at BUCKETED_RF_TIMED), each bucket of the serving GBT's layout
+scan against leaf_path (``time_buckets``, what the card's MATMUL_CHEAP is
+read from), and prints ``benchmark_inference`` on the serving GBT at 4,096
+rows.
+
 The timings phase also times B2 and B4 on the rank1 forests at 10,000 rows
 (``time_tiled``, ``time_single``; the bound counts 8 P bytes and 2 P
 operations per oblique node), and the kernels line carries those numbers
@@ -341,6 +381,16 @@ TASK_SERVE_ROWS = 10_000
 # split_gain of a GBT grown from float gradients, card (B3) against the
 # CPU's numpy histograms: see equal_but_gain
 GAIN_RTOL = 1e-4
+# the uplift forest's numerical-outcome case: outcome * UPLIFT_SCALE plus
+# N(0, UPLIFT_NOISE) noise from UPLIFT_NOISE_SEED (float stats in B3)
+UPLIFT_SCALE, UPLIFT_NOISE, UPLIFT_NOISE_SEED = 3.7, 0.9, 5
+# the bucketed engines (ROADMAP A5) timed beside B2 and B4: the serving GBT
+# at TIMED_SIZES, the trained RF at BUCKETED_RF_TIMED rows; the async phase:
+# a queue cap of ASYNC_CAP_SHARE of the requests' rows (the rest shed), the
+# bulk sweep over BULK_ROWS rows in chunks of BULK_CHUNK
+BUCKETED_RF_TIMED = (10_000, 100_000)
+ASYNC_CAP_SHARE = 0.8
+BULK_ROWS, BULK_CHUNK = 65_536, 4096
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -2343,7 +2393,8 @@ def equal_but_gain(card, cpu) -> dict:
     differ in their last float32 bit, and the gain's cancellation (score of
     the children less the parent's) carries that to ~1e-5 of the gain
     (1.4e-5 when the quantization is emulated on the CPU). Integer stats
-    (RF, CART, uplift) have no such rounding; their gains are equal."""
+    (RF, CART, uplift with a 0/1 outcome) have no such rounding; their
+    gains are equal."""
     fields = field_equal(card, cpu)
     a, b = card.forest.split_gain, cpu.forest.split_gain
     diff = np.abs(a.astype(np.float64) - b)
@@ -2512,7 +2563,15 @@ def run_uplift(device, backend, n: int = UPLIFT["n"],
     == builds, counts reset just before and read just after), equal to the
     CPU's run (numpy lockstep blocks) on every Forest field; Qini > 0 on
     the training rows; growth_engine="device" raises ``YdfError`` on the
-    card too; a traced run of one block. Returns (model, summary)."""
+    card too; a traced run of one block. Then the same cut on a numerical
+    outcome (``numerical_uplift``): launches == builds; the card's forest
+    equals the CPU's run through B3's plain version (float32 cells of
+    float64 sums, ``histogram_backend="torch"``) on every field but
+    ``split_gain``, which agrees within GAIN_RTOL (``equal_but_gain``), and
+    the CPU's numpy run (float64 cells) on every field but ``split_gain``,
+    whose largest relative difference is reported: the float32 rounding of
+    the cells moves it on the CPU's plain version just as on the card.
+    Returns (model, summary)."""
     from repro_torch.core.api import YdfError
     from repro_torch.data.tabular import randomized_treatment
     from repro_torch.kernels.histogram import histogram
@@ -2551,6 +2610,41 @@ def run_uplift(device, backend, n: int = UPLIFT["n"],
                             kernels=HIST_KERNELS,
                             n_trees=logs["tree_parallelism"],
                             tree_span="uplift/block")
+    # the numerical outcome: float stats, so B3 rounds its exact sums to
+    # float32 where numpy sums in float64 (tasks/uplift.py)
+    num_data = numerical_uplift(n)
+    histogram.LAUNCHES = 0               # the numerical run starts here
+    backend.builds = 0
+    t0 = clock.perf()
+    num_card = train_uplift(num_data, device, num_trees=n_trees)
+    num_seconds = clock.perf() - t0
+    num_launches, num_builds = histogram.LAUNCHES, backend.builds  # ends
+    if device.type == "cuda" and (num_builds <= 0
+                                  or num_launches != num_builds):
+        raise AssertionError(f"numerical uplift: {num_builds} histogram "
+                             f"builds made {num_launches} kernel launches")
+    # held to the CPU's float32-cell run (B3's plain version) under
+    # equal_but_gain's rule, and to its float64 run (numpy) on every field
+    # but split_gain, whose difference is the cells' float32 rounding
+    plain = equal_but_gain(num_card, train_uplift(
+        num_data, "cpu", num_trees=n_trees, histogram_backend="torch"))
+    cpu_num = train_uplift(num_data, "cpu", num_trees=n_trees)
+    numpy_fields = field_equal(num_card, cpu_num)
+    if not all(v for k, v in numpy_fields.items() if k != "split_gain"):
+        raise AssertionError(f"numerical uplift card vs CPU (numpy): "
+                             f"fields equal {numpy_fields}")
+    g_card = num_card.forest.split_gain.astype(np.float64)
+    g_cpu = cpu_num.forest.split_gain.astype(np.float64)
+    live = g_cpu != 0
+    numerical = {
+        "vs_cpu_plain_version": plain,
+        "vs_cpu_numpy": {
+            "fields_equal": numpy_fields,
+            "split_gain_differ": int((g_card != g_cpu).sum()),
+            "split_gains": int(live.sum()),
+            "split_gain_max_rel_diff": float(
+                (np.abs(g_card - g_cpu)[live] / np.abs(g_cpu[live])).max())
+            if live.any() else 0.0}}
     return model, {
         "rows": n, "trees": n_trees,
         "cut": f"{n_trees} of the default 100 trees",
@@ -2558,7 +2652,23 @@ def run_uplift(device, backend, n: int = UPLIFT["n"],
         "cpu_seconds": cpu_seconds, "builds": builds, "launches": launches,
         "card_equals_cpu": True, "nodes_mean": float(f.n_nodes.mean()),
         "depth": f.depth, "qini": ev["qini"], "auuc": ev["auuc"],
-        "device_engine_refused": refused, "profile": prof}
+        "device_engine_refused": refused, "profile": prof,
+        "numerical_outcome": {
+            "outcome": (f"outcome * {UPLIFT_SCALE} + N(0, {UPLIFT_NOISE}) "
+                        f"(noise seed {UPLIFT_NOISE_SEED})"),
+            "seconds": num_seconds, "builds": num_builds,
+            "launches": num_launches, **numerical}}
+
+
+def numerical_uplift(n: int = UPLIFT["n"]) -> dict:
+    """randomized_treatment with a NUMERICAL outcome: outcome *
+    UPLIFT_SCALE plus N(0, UPLIFT_NOISE) noise from UPLIFT_NOISE_SEED."""
+    from repro_torch.data.tabular import randomized_treatment
+    data = randomized_treatment(**{**UPLIFT, "n": n})
+    rng = np.random.default_rng(UPLIFT_NOISE_SEED)
+    y = (np.asarray(data["outcome"], np.float64) * UPLIFT_SCALE
+         + rng.normal(0.0, UPLIFT_NOISE, n))
+    return dict(data, outcome=y.astype(object))
 
 
 def run_isolation(device, n_requests: int = 40) -> tuple:
@@ -2659,6 +2769,294 @@ def serve_tasks(models: dict, rows: dict, device) -> dict:
                                  "on the CPU")
         out[name] = {"rows": len(got), "engine": bundle.predictor.name,
                      "seconds": seconds}
+    return out
+
+
+# ------------------------------------ the bucketed engines (ROADMAP A5)
+
+def _strategies(forest, strategy, device) -> tuple:
+    """(bucket depths, strategies) of ``forest``'s bucketed layout with
+    ``strategy`` forced, or the device's cost model when None."""
+    from repro_torch.core.tree import pack_depth_buckets
+    from repro_torch.kernels.forest_infer import ops
+    bf = pack_depth_buckets(forest, strategy=strategy,
+                            matmul_cheap=ops.MATMUL_CHEAP[device.type])
+    return ([b.depth for b in bf.buckets], [b.strategy for b in bf.buckets])
+
+
+def serve_bucketed(cases: dict, budget_gated: set, oblique_model,
+                   device) -> dict:
+    """The "bucketed" engine (each bucket's strategy from the device's cost
+    model), the "leaf_path" engine (with TF32 matmuls allowed and not) and
+    the scan forced on every bucket, over named (forest, X) cases: each
+    answer ``array_equal`` to ``predict_naive`` on the first NAIVE_ROWS
+    rows and to the cuda engine (B2, tree order; its plain version on the
+    CPU) on every row. The cases of ``budget_gated`` must have leaf_path
+    refused by LEAF_PATH_BUDGET; any other case's gate is reported. An
+    oblique model asked for "bucketed" raises ``YdfError`` naming the
+    compatible engines."""
+    import torch
+    from repro_torch.core import engines
+    from repro_torch.core.api import YdfError
+    from repro_torch.core.tree import leaf_path_sizes, predict_naive
+    from repro_torch.kernels.forest_infer import ops
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for name, (forest, X) in cases.items():
+            X = np.ascontiguousarray(X, np.float32)
+            naive = predict_naive(forest, X[:NAIVE_ROWS])
+            cuda = ops.forest_predict(forest, X, "cuda", device).cpu().numpy()
+            avail = engines.available_engines(device, forest)
+            runs = [("bucketed", None), ("scan", "scan")]
+            if "leaf_path" in avail:
+                runs += [("leaf_path", True), ("leaf_path", False)]
+            if name in budget_gated and "leaf_path" in avail:
+                raise AssertionError(f"{name}: leaf_path not gated out")
+            for engine, how in runs:
+                if engine == "scan":
+                    got = ops.forest_predict_bucketed(forest, X, "scan",
+                                                      device)
+                else:
+                    if engine == "leaf_path":
+                        torch.backends.cuda.matmul.allow_tf32 = how
+                    got = engines._compile_forest_engine(
+                        forest, engine, device).per_tree(X)
+                if not (np.array_equal(got[:NAIVE_ROWS], naive)
+                        and np.array_equal(got, cuda)):
+                    raise AssertionError(
+                        f"{name}: {engine} ({how}) != predict_naive / the "
+                        "cuda engine")
+            i, l = leaf_path_sizes(forest)
+            out[name] = {
+                "rows": len(X), "trees": forest.n_trees,
+                "max_nodes": forest.max_nodes, "depth": forest.depth,
+                "leaf_path_sizes": [i, l],
+                "leaf_path": ("equal, allow_tf32 on and off"
+                              if "leaf_path" in avail else "refused: budget"),
+                **dict(zip(("bucket_depths", "auto"),
+                           _strategies(forest, None, device))),
+                "strategies": {s: _strategies(forest, s, device)[1]
+                               for s in ("scan", "leaf_path")
+                               if s == "scan" or "leaf_path" in avail}}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        engines.compile_predictor(oblique_model, "bucketed", device)
+    except YdfError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("an oblique model compiled the bucketed engine")
+    if "Compatible engines" not in refused:
+        raise AssertionError(f"oblique refusal names no engines: {refused}")
+    return {"cases": out, "oblique_refused": refused,
+            "matmul_cheap": ops.MATMUL_CHEAP[device.type]}
+
+
+def serve_async(model, device, n_requests: int = 50,
+                bulk_rows: int = BULK_ROWS, chunk_rows: int = BULK_CHUNK,
+                seed: int = SEED) -> dict:
+    """The asyncio front end over a ForestServer with the default chain:
+    ``n_requests`` raw-column requests of 1 to 300 rows fanned in with
+    ``asyncio.gather`` against a queue cap of ASYNC_CAP_SHARE of their rows,
+    which sheds the number the admission rule gives for those sizes (all
+    are submitted before the first pump); every answer equals
+    ``finalize(predict_naive(encode(batch)))``. Then the same requests
+    through a bundle warmed with ``warm_ladder(up_to=1024)``, a bulk sweep
+    of ``bulk_rows`` rows through ``predict_encoded_bulk(chunk_rows=...)``
+    equal to one direct call, and a ``CompiledPredictor`` on the bucketed
+    engine pickled (the bytes a worker process is sent,
+    ``ForkingPickler``) and loaded: the same engine, equal answers."""
+    import asyncio
+    from multiprocessing.reduction import ForkingPickler
+    from repro_torch.core.dataspec import BatchEncoder
+    from repro_torch.core.engines import compile_predictor
+    from repro_torch.core.tree import predict_naive
+    from repro_torch.kernels.forest_infer import forest_infer
+    from repro_torch.obs import clock
+    from repro_torch.serving.forest import DEFAULT_BUCKETS, make_forest_server
+    from repro_torch.serving.server import (AsyncForestServer, ForestServer,
+                                            RequestShed)
+    rng = np.random.default_rng(seed + 3)
+    sizes = request_sizes(n_requests, seed + 3)
+    requests = [raw_request(rng, n) for n in sizes]
+    cap = int(sum(sizes) * ASYNC_CAP_SHARE)
+    queued, expected_shed = 0, 0
+    for n in sizes:                      # ForestServer.submit's queue rule
+        if queued + n > cap:
+            expected_shed += 1
+        else:
+            queued += n
+    encoder = BatchEncoder(model.spec, model.features)
+    finalize = model._compile_finalize()
+    oracle = [finalize(predict_naive(model.forest, encoder.encode(req)))
+              for req in requests]
+    server = ForestServer(model, device=device, max_queue_rows=cap)
+
+    async def fan_in():
+        async with AsyncForestServer(server) as front:
+            return await asyncio.gather(*(front.predict(r) for r in requests),
+                                        return_exceptions=True)
+
+    before = forest_infer.LAUNCHES
+    t0 = clock.perf()
+    answers = asyncio.run(fan_in())
+    seconds = clock.perf() - t0
+    async_launches = forest_infer.LAUNCHES - before
+    shed = 0
+    for i, (got, want) in enumerate(zip(answers, oracle)):
+        if isinstance(got, RequestShed):
+            shed += 1
+        elif isinstance(got, BaseException):
+            raise got
+        elif not np.array_equal(got, want):
+            raise AssertionError(f"async request {i}: answer != host oracle")
+    m = server.metrics
+    head = server.engine_status()[0]["engine"]
+    if (shed, m.shed, m.completed) != (expected_shed, expected_shed,
+                                       n_requests - expected_shed):
+        raise AssertionError(f"{shed} shed ({m.shed} counted, {m.completed} "
+                             f"completed), expected {expected_shed}")
+    if m.engine_dispatches != {head: m.dispatches} or m.failed:
+        raise AssertionError(f"async dispatches {m.engine_dispatches}, "
+                             f"failed {m.failed}")
+    if device.type == "cuda" and (head != "cuda" or async_launches
+                                  != m.dispatches):
+        raise AssertionError(f"{m.dispatches} {head} dispatches made "
+                             f"{async_launches} B2 launches")
+    lat = m.latency_percentiles()
+
+    bundle = make_forest_server(model, device=device)
+    warmed = bundle.warm_ladder(len(model.features), up_to=1024)
+    if warmed != list(DEFAULT_BUCKETS):
+        raise AssertionError(f"warm_ladder touched {warmed}")
+    t0 = clock.perf()
+    warmed_answers = [bundle.predict(req) for req in requests]
+    warmed_seconds = clock.perf() - t0
+    for i, (got, want) in enumerate(zip(warmed_answers, oracle)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"warmed bundle, request {i} != oracle")
+
+    X = encoded_inputs(bulk_rows, seed=77)
+    pred = bundle.predictor
+    direct = pred.predict_encoded(X)
+    calls = []
+    call = pred.predict_encoded
+    pred.predict_encoded = lambda Z: (calls.append(len(Z)), call(Z))[1]
+    try:
+        t0 = clock.perf()
+        bulk = bundle.predict_encoded_bulk(X, chunk_rows=chunk_rows)
+        bulk_seconds = clock.perf() - t0
+    finally:
+        del pred.predict_encoded
+    top = DEFAULT_BUCKETS[-1]
+    step = max(top, chunk_rows - chunk_rows % top)
+    if not np.array_equal(bulk, direct) or len(calls) != -(-bulk_rows // step):
+        raise AssertionError(f"bulk sweep in {calls} != one direct call")
+
+    bucketed = compile_predictor(model, "bucketed", device)
+    blob = bytes(ForkingPickler.dumps(bucketed))
+    clone = ForkingPickler.loads(blob)
+    Xp = encoded_inputs(4096, seed=78)
+    got = clone.predict_encoded(Xp)
+    if (clone.name, clone.engine.device.type) != ("bucketed", device.type) \
+            or not np.array_equal(got, bucketed.predict_encoded(Xp)) \
+            or not np.array_equal(got[:NAIVE_ROWS], finalize(predict_naive(
+                model.forest, Xp[:NAIVE_ROWS]))):
+        raise AssertionError("the pickled bucketed predictor differs")
+    return {"requests": n_requests, "request_rows": int(sum(sizes)),
+            "max_queue_rows": cap, "expected_shed": expected_shed,
+            "shed": shed, "completed": m.completed,
+            "dispatches": m.dispatches, "engine_dispatches":
+            m.engine_dispatches, "async_launches": async_launches,
+            "seconds": seconds, "p50_ms": lat["p50_ms"],
+            "p99_ms": lat["p99_ms"], "warmed": warmed,
+            "warmed_seconds": warmed_seconds, "bulk_rows": bulk_rows,
+            "bulk_dispatches": len(calls), "bulk_seconds": bulk_seconds,
+            "pickled_engine": clone.name, "pickled_bytes": len(blob)}
+
+
+def time_bucketed(cases: dict, device) -> dict:
+    """Per named (forest, X) case, from one run: the whole engine call
+    (``engine.per_tree``: host rows in, host numpy out; ``device_ms``) of
+    the cuda engine and of the bucketed engines ("bucketed": the device's
+    cost model; "scan" and "leaf_path" forced; leaf_path only within its
+    budget), the bucketed runner's device time over device rows
+    (``device_only_ms`` of ``device_call``), and B2's (tree order) and
+    B4's device time on the same rows."""
+    import torch
+    from repro_torch.core import engines
+    from repro_torch.kernels.forest_infer import ops
+    from repro_torch.kernels.forest_infer.forest_infer import (run_single,
+                                                               run_tiled)
+    out = {}
+    for name, (forest, X) in cases.items():
+        X = np.ascontiguousarray(X, np.float32)
+        Xd = torch.from_numpy(X).to(device)
+        packed = ops.device_packed(forest, device)
+        soa = ops.device_soa(forest, device)
+        row = {"rows": len(X), "trees": forest.n_trees,
+               "cuda_per_tree_ms": device_ms(   # the cuda engine's per_tree
+                   lambda: ops.forest_predict(forest, X, "cuda",
+                                              device).cpu().numpy()),
+               "b2_device_ms": device_only_ms(
+                   lambda: run_tiled(Xd, packed.layout, tree_order=True)),
+               "b4_device_ms": device_only_ms(
+                   lambda: run_single(Xd, soa.layout))}
+        avail = engines.available_engines(device, forest)
+        for mode, strategy in (("bucketed", None), ("scan", "scan"),
+                               ("leaf_path", "leaf_path")):
+            if mode == "leaf_path" and mode not in avail:
+                row[mode] = "refused: budget"
+                continue
+            runner = ops.bucketed_runner(forest, strategy, device)
+            row[mode] = {
+                "per_tree_ms": device_ms(lambda: ops.forest_predict_bucketed(
+                    forest, X, strategy, device)),
+                "device_ms": device_only_ms(lambda: runner.device_call(Xd)),
+                "strategies": [s for s, _, _ in runner.spec],
+                "bucket_depths": [d for _, d, _ in runner.spec]}
+        out[name] = row
+    return out
+
+
+def time_buckets(forest, sizes, device) -> dict:
+    """Per bucket of ``forest``'s layout, the scan's rounds against the
+    leaf-path matmul on the same bucket and rows: each block's device time
+    (``device_only_ms``) and time per call (``device_ms``) at each N of
+    ``sizes`` (rows from ``encoded_inputs``). The card's MATMUL_CHEAP is
+    read from these numbers."""
+    import torch
+    from repro_torch.core.tree import pack_depth_buckets
+    from repro_torch.kernels.forest_infer import bucketed
+    scan = bucketed.build_bucketed_runner(
+        pack_depth_buckets(forest, strategy="scan"), device)
+    path = bucketed.build_bucketed_runner(
+        pack_depth_buckets(forest, strategy="leaf_path"), device)
+    out = {}
+    for b, ((_, depth, has_cat), ts, tp) in enumerate(
+            zip(scan.spec, scan.tables, path.tables)):
+        k, I = tp["feature"].shape
+        rows = {}
+        for n in sizes:
+            X = torch.from_numpy(encoded_inputs(n, seed=200 + n)).to(device)
+            Xs = torch.cat([X, X.new_zeros((n, 1))], dim=1)
+            Xflat = Xs.reshape(-1)
+            F = X.shape[1]
+            row = torch.arange(n, dtype=torch.int64, device=device)[:, None] \
+                * (F + 1)
+            fs = lambda: bucketed._scan_block(Xflat, row, ts, has_cat, depth,
+                                              F)
+            fp = lambda: bucketed._leaf_path_chunked(Xs, tp, has_cat)
+            if not torch.equal(fs(), fp()):
+                raise AssertionError(f"bucket {b}: scan != leaf_path")
+            r = {"scan_ms": device_ms(fs), "scan_device_ms": device_only_ms(fs),
+                 "leaf_path_ms": device_ms(fp),
+                 "leaf_path_device_ms": device_only_ms(fp)}
+            r["leaf_path_faster"] = r["leaf_path_device_ms"] < r["scan_device_ms"]
+            rows[n] = r
+        out[f"bucket {b}: depth={depth}, trees={k}, I={I}, "
+            f"L={tp['paths'].shape[-1]}"] = rows
     return out
 
 
@@ -2863,6 +3261,39 @@ def main() -> int:
                              "launches (a warm-up and a dispatch each)")
     emit(phase="serve_tasks", **tasks_served, launches=tasks_launches)
 
+    # the bucketed engines and the async front end (ROADMAP A5)
+    uplift_rows = randomized_treatment(**UPLIFT)
+    X_uplift = BatchEncoder(uplift.spec, uplift.features).encode(
+        {k: uplift_rows[k][:TASK_SERVE_ROWS] for k in uplift.features})
+    rank_model = ranking_models["batched"]
+    rank_rows = ranking_data()[1]
+    X_rank = BatchEncoder(rank_model.spec, rank_model.features).encode(
+        {k: rank_rows[k][:TASK_SERVE_ROWS] for k in rank_model.features})
+    forest_infer.LAUNCHES = 0            # the bucketed phase starts here
+    bucketed_served = serve_bucketed({
+        "serving gbt N=4096": (model.forest, encoded_inputs(4096, seed=40)),
+        "trained gbt, device engine": (trained.forest, X_valid),
+        "trained rf": (rf.forest, X_rf),
+        "isolation": (isolation.forest, X_iso),
+        "uplift": (uplift.forest, X_uplift),
+        "ranking": (rank_model.forest, X_rank),
+        **cases}, {"trained rf", f"{BIG_NODES} nodes", "O=3"},
+        rank1["gbt"], device)
+    bucketed_launches = forest_infer.LAUNCHES   # ... and ends here
+    if bucketed_launches <= 0:
+        raise AssertionError("the bucketed phase's cuda engine launched "
+                             "nothing")
+    emit(phase="serve_bucketed", card=card, **bucketed_served,
+         launches=bucketed_launches)
+    forest_infer.LAUNCHES = 0            # the async phase starts here
+    served_async = serve_async(model, device)
+    async_launches = forest_infer.LAUNCHES      # ... and ends here
+    if async_launches < served_async["async_launches"] or async_launches <= 0:
+        raise AssertionError(f"the async phase made {async_launches} B2 "
+                             "launches")
+    emit(phase="serve_async", card=card, **served_async,
+         launches=async_launches)
+
     # the single-tree kernel's path: forest_predict(impl="single") on the
     # trained forest and on the default GBT
     X_gbt = encoded_inputs(MAIN_N, seed=12)
@@ -2920,6 +3351,16 @@ def main() -> int:
          **{f"single {k}": row for k, row in single_iso.items()},
          server_p50_ms=stats["p50_ms"], server_p99_ms=stats["p99_ms"],
          server_rows_per_s=stats["rows_per_s"])
+    from repro_torch.core.engines import benchmark_inference
+    emit(phase="timings_bucketed", card=card, engines=time_bucketed({
+        **{f"gbt N={n}": (model.forest, encoded_inputs(n, seed=100 + n))
+           for n in TIMED_SIZES},
+        **{f"rf N={n}": (rf.forest, X_rf_all[:n])
+           for n in BUCKETED_RF_TIMED}}, device),
+         buckets=time_buckets(model.forest, TIMED_SIZES, device),
+         benchmark_inference=benchmark_inference(
+             model, raw_request(np.random.default_rng(SEED + 4), 4096),
+             repetitions=1, device=device).splitlines())
 
     main_n = MAIN_N
     t = timings[main_n]
@@ -2954,7 +3395,9 @@ def main() -> int:
                           f"depth={f.depth}, O=1")}
     task_hist = {"ranking": ranking_run["batched"]["launches"],
                  "ranking_pointwise": ranking_run["pointwise"]["launches"],
-                 "uplift": uplift_run["launches"]}
+                 "uplift": uplift_run["launches"],
+                 "uplift_numerical":
+                     uplift_run["numerical_outcome"]["launches"]}
     print(json.dumps({"kernels": [{
         "name": "forest_infer_tiled",
         "route": "cuda",
@@ -2972,7 +3415,9 @@ def main() -> int:
         "isolation": isolation_row(tiled_iso[main_i],
                                    iso_run["tiled_launches"]),
         "task_launches": {"isolation": iso_run["tiled_launches"],
-                          "ranking_and_uplift_served": tasks_launches},
+                          "ranking_and_uplift_served": tasks_launches,
+                          "serve_bucketed": bucketed_launches,
+                          "serve_async": async_launches},
     }, {
         "name": "fused_split",
         "route": "cuda",

@@ -14,6 +14,12 @@ Models save to and load from a directory of plain data (``Model.save``,
 ``Model.load``), and ``checkpoint=`` on every learner gives interruption-safe
 training with bit-identical resume (``resume_training``).
 
+Serving: ``make_forest_server`` (padded dispatches; ``warm_ladder`` and
+``predict_encoded_bulk``), the fault-tolerant ``ForestServer`` and its
+asyncio front end ``AsyncForestServer``; ``benchmark_inference`` times
+every engine a model has on a device, the depth-bucketed "bucketed" and
+"leaf_path" engines among them.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 """
@@ -25,7 +31,11 @@ def __getattr__(name):
     if name in ("GradientBoostedTreesLearner", "RandomForestLearner",
                 "CartLearner", "UpliftTreesLearner", "IsolationForestLearner",
                 "Model", "get_learner", "list_learners", "make_learner",
-                "CheckpointPolicy", "resume_training"):
+                "CheckpointPolicy", "resume_training",
+                "benchmark_inference"):
         from repro_torch import core
         return getattr(core, name)
+    if name in ("ForestServer", "AsyncForestServer", "make_forest_server"):
+        from repro_torch import serving
+        return getattr(serving, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -22,6 +22,11 @@ _LAZY = {
     "UpliftTreesLearner": "repro_torch.tasks.uplift",
     "IsolationForestLearner": "repro_torch.tasks.isolation",
     "CheckpointPolicy": "repro_torch.train.checkpoint",
+    "CompiledPredictor": "repro_torch.core.engines",
+    "compile_predictor": "repro_torch.core.engines",
+    "available_engines": "repro_torch.core.engines",
+    "select_cpu_engine": "repro_torch.core.engines",
+    "benchmark_inference": "repro_torch.core.engines",
     "resume_training": "repro_torch.train.checkpoint",
 }
 

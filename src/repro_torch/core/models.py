@@ -230,7 +230,9 @@ class DecisionForestModel(Model):
     def predict(self, dataset, *, engine: str | None = None,
                 device=None) -> np.ndarray:
         """Raw request columns -> predictions. Classification: (N, n_classes)
-        probabilities; regression, ranking, uplift and anomaly: (N,)."""
+        probabilities; regression, ranking, uplift and anomaly: (N,).
+        ``engine`` names one of ``engines.ENGINES`` that the device and the
+        forest allow (None: "cuda" on the card, "ref" on the CPU)."""
         return self.predictor(engine, device).predict(dataset)
 
     def _scores(self, dataset, engine=None, device=None) -> np.ndarray:

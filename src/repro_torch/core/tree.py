@@ -398,6 +398,241 @@ def compile_predict_raw(forest: Forest):
     return run
 
 
+# --------------------------------------------- depth-bucketed layout (§10)
+#
+# The compiled numpy traversal and the depth-packed kernel layout both pay
+# a block's (or the forest's) max depth in lockstep rounds. The bucketed
+# layout groups trees into a handful of depth-homogeneous BUCKETS so each
+# bucket runs exactly its own depth of rounds, and each bucket chooses its
+# scoring strategy:
+#
+#   * "scan"      — flat-table lockstep traversal with sentinel leaves
+#                   (leaves self-loop via a zero-valued sentinel feature
+#                   column, so a round is gather + compare + advance with
+#                   no leaf masking);
+#   * "leaf_path" — root-to-leaf paths enumerated as a signed predicate
+#                   matrix plus leaf-value table: every internal condition
+#                   is evaluated in one pass and a batched matmul counts
+#                   per-path predicate hits, with no traversal loop (the
+#                   SIMD decision-tree transform, arXiv:2205.07307).
+#
+# The tables here are host numpy, array for array the reference's;
+# kernels/forest_infer/bucketed.py uploads them and runs them in PyTorch.
+
+LEAF_PATH_BUDGET = 1 << 14   # max internal x leaf predicate entries per tree
+
+
+@dataclass
+class TreeBucket:
+    """One depth-homogeneous group of trees plus its scoring tables."""
+    trees: np.ndarray        # original tree indices in this bucket
+    depth: int               # max actual depth within the bucket
+    strategy: str            # "scan" | "leaf_path"
+    tables: dict             # strategy-specific numpy tables
+
+
+@dataclass
+class BucketedForest:
+    """Depth-bucketed layout (DESIGN.md §10.1)."""
+    buckets: list
+    inv_order: np.ndarray    # original tree t lives at packed slot inv_order[t]
+    n_trees: int
+    out_dim: int             # trailing leaf dim
+
+
+def plan_depth_buckets(depths: np.ndarray, *, max_buckets: int = 4,
+                       min_trees: int = 8) -> list[np.ndarray]:
+    """Group trees into <= ``max_buckets`` depth-homogeneous buckets.
+
+    Trees are sorted by actual depth; runs of equal depth seed the buckets,
+    then adjacent buckets merge greedily by least extra traversal cost
+    (trees in the shallower bucket x the depth gap) until the bucket count
+    and the ``min_trees`` floor (tiny buckets are pure dispatch overhead)
+    are both satisfied. Deterministic, so engine selection is testable."""
+    T = len(depths)
+    if T == 0:
+        return []
+    order = np.argsort(depths, kind="stable")
+    sd = np.asarray(depths)[order]
+    bounds = [0] + [i for i in range(1, T) if sd[i] != sd[i - 1]] + [T]
+    buckets = [[bounds[i], bounds[i + 1]] for i in range(len(bounds) - 1)]
+
+    def merge_cost(i: int) -> int:
+        a, b = buckets[i], buckets[i + 1]
+        return int((sd[b[1] - 1] - sd[a[0]:a[1]]).sum())
+
+    while len(buckets) > 1:
+        small = any(e - s < min_trees for s, e in buckets)
+        if len(buckets) <= max_buckets and not small:
+            break
+        i = int(np.argmin([merge_cost(j) for j in range(len(buckets) - 1)]))
+        buckets[i] = [buckets[i][0], buckets[i + 1][1]]
+        del buckets[i + 1]
+    return [order[s:e] for s, e in buckets]
+
+
+def _bucket_path_sizes(forest: Forest, sub) -> tuple[int, int]:
+    """(max internal nodes, max leaves) over the trees ``sub``."""
+    reach = _reachable(forest)[sub]
+    lc = forest.left_child[sub]
+    internal = reach & (lc >= 0)
+    leaves = reach & (lc < 0)
+    return int(internal.sum(1).max()), max(1, int(leaves.sum(1).max()))
+
+
+def leaf_path_sizes(forest: Forest) -> tuple[int, int]:
+    """(max internal nodes, max leaves) over trees: the predicate-matrix
+    footprint that gates the leaf_path engine (engines.py)."""
+    if forest.n_trees == 0:
+        return 0, 1
+    return _bucket_path_sizes(forest, slice(None))
+
+
+def select_block_strategy(depth: int, n_internal: int, n_leaves: int, *,
+                          matmul_cheap: bool = False,
+                          leaf_path_budget: int = LEAF_PATH_BUDGET) -> str:
+    """Pick the scoring strategy for one bucket.
+
+    The matmul evaluates all ``n_internal`` conditions of a tree where the
+    scan evaluates ``depth``, so leaf_path is chosen only where the matmul
+    is cheap on the device (``matmul_cheap``, decided per device by
+    ``kernels/forest_infer/ops.MATMUL_CHEAP`` from a measurement) and the
+    predicate matrix of a shallow tree stays small."""
+    if matmul_cheap and depth <= 6 and n_internal * n_leaves <= leaf_path_budget:
+        return "leaf_path"
+    return "scan"
+
+
+def _flatten_scan_bucket(forest: Forest, sub: np.ndarray) -> dict:
+    """Flat global-id tables for the scan strategy. Leaves become sentinel
+    nodes: feature -1 (rewritten at run time to a zero-valued sentinel
+    column appended to X), threshold +inf, child = the node's own flat id,
+    so a finished (example, tree) lane keeps gathering ``0 >= inf -> stay``
+    with no leaf mask or conditional select in the round."""
+    k = len(sub)
+    M = max(1, int(forest.n_nodes[sub].max()))
+    O = forest.leaf_value.shape[-1]
+    feat = forest.feature[sub][:, :M].astype(np.int32)
+    thr = forest.threshold[sub][:, :M].astype(np.float32)
+    lc = forest.left_child[sub][:, :M].astype(np.int32)
+    cat = forest.cat_mask[sub][:, :M]
+    node_ids = np.broadcast_to(np.arange(M, dtype=np.int32)[None, :], (k, M))
+    off = (np.arange(k, dtype=np.int32) * M)[:, None]
+    is_leaf = lc < 0
+    iscat = cat.any(-1) & ~is_leaf   # a stale mask on a leaf slot must not
+    #                                  override the sentinel 0 >= inf self-loop
+    return {
+        "feature": np.where(is_leaf, np.int32(-1), feat).ravel(),
+        "threshold": np.where(is_leaf, np.float32(np.inf), thr).ravel(),
+        "child": (np.where(is_leaf, node_ids, lc) + off).ravel(),
+        "leaf_value": np.ascontiguousarray(
+            forest.leaf_value[sub][:, :M]).reshape(k * M, O),
+        "root": np.ascontiguousarray(off[:, 0]),
+        "is_cat": iscat.ravel(),
+        "cat_words": np.ascontiguousarray(cat).reshape(k * M, MASK_WORDS),
+        "has_cat": bool(iscat.any()),
+    }
+
+
+def enumerate_leaf_paths(forest: Forest, sub: np.ndarray) -> dict:
+    """Root-to-leaf paths of every tree in ``sub`` as predicate tables.
+
+    Per tree: internal-node conditions (feature/threshold/category mask,
+    padded to the bucket-wide ``I`` with never-true sentinels) and a signed
+    path matrix ``P`` (I, L): +1 where leaf l's path turns RIGHT at internal
+    node i, -1 where it turns LEFT, 0 off-path. With C the 0/1 condition
+    vector, ``C @ P + base`` counts correct decisions along each path
+    (``base[l]`` = number of left turns); exactly the true leaf reaches its
+    ``path_len``, so argmax(hits - path_len) selects it. All sums are small
+    integers in float32, hence exact, hence bit-identical to traversal."""
+    k = len(sub)
+    O = forest.leaf_value.shape[-1]
+    per = []
+    for t in sub:
+        lc = forest.left_child[t]
+        internal: list[int] = []
+        leaves: list[tuple[int, list]] = []
+        stack: list[tuple[int, list]] = [(0, [])]
+        while stack:
+            node, path = stack.pop()
+            if lc[node] < 0:
+                leaves.append((node, path))
+            else:
+                li = len(internal)
+                internal.append(node)
+                stack.append((lc[node] + 1, path + [(li, 1)]))
+                stack.append((lc[node], path + [(li, 0)]))
+        per.append((internal, leaves))
+    I = max(1, max(len(p[0]) for p in per))
+    L = max(1, max(len(p[1]) for p in per))
+    feat = np.zeros((k, I), np.int32)
+    thr = np.full((k, I), np.inf, np.float32)
+    iscat = np.zeros((k, I), bool)
+    catw = np.zeros((k, I, MASK_WORDS), np.uint32)
+    P = np.zeros((k, I, L), np.float32)
+    base = np.zeros((k, L), np.float32)
+    plen = np.full((k, L), np.float32(2 ** 20), np.float32)  # pads never match
+    leafv = np.zeros((k, L, O), np.float32)
+    for j, (t, (internal, leaves)) in enumerate(zip(sub, per)):
+        for li, node in enumerate(internal):
+            feat[j, li] = forest.feature[t, node]
+            thr[j, li] = forest.threshold[t, node]
+            cm = forest.cat_mask[t, node]
+            if cm.any():
+                iscat[j, li] = True
+                catw[j, li] = cm
+        for l, (node, path) in enumerate(leaves):
+            plen[j, l] = len(path)
+            leafv[j, l] = forest.leaf_value[t, node]
+            for li, go in path:
+                P[j, li, l] = 1.0 if go else -1.0
+                if not go:
+                    base[j, l] += 1.0
+    return {"feature": feat, "threshold": thr, "is_cat": iscat,
+            "cat_words": catw, "paths": P, "base": base, "path_len": plen,
+            "leaf_value": leafv, "has_cat": bool(iscat.any()),
+            "n_internal": I, "n_leaves": L}
+
+
+def pack_depth_buckets(forest: Forest, *, strategy: str | None = None,
+                       max_buckets: int = 4, min_trees: int = 8,
+                       matmul_cheap: bool = False) -> BucketedForest:
+    """Pack a Forest into the depth-bucketed layout (DESIGN.md §10.1).
+
+    ``strategy`` forces "scan" or "leaf_path" for every bucket; None lets
+    ``select_block_strategy`` choose per bucket. Oblique forests raise
+    ``ValueError`` (the engine layer refuses them first, naming the
+    engines that serve them)."""
+    if forest.has_oblique():
+        raise ValueError("bucketed packing does not support oblique forests")
+    T = forest.n_trees
+    O = forest.leaf_value.shape[-1]
+    depths = tree_depths(forest)
+    subs = plan_depth_buckets(depths, max_buckets=max_buckets,
+                              min_trees=min_trees)
+    buckets = []
+    for sub in subs:
+        d = int(depths[sub].max())
+        if strategy is not None:
+            strat = strategy
+        else:
+            strat = select_block_strategy(
+                d, *_bucket_path_sizes(forest, sub), matmul_cheap=matmul_cheap)
+        if strat == "leaf_path":
+            tables = enumerate_leaf_paths(forest, sub)
+        else:
+            strat = "scan"
+            tables = _flatten_scan_bucket(forest, sub)
+        buckets.append(TreeBucket(trees=sub, depth=max(1, d), strategy=strat,
+                                  tables=tables))
+    order = (np.concatenate([b.trees for b in buckets])
+             if buckets else np.zeros(0, np.int64))
+    inv_order = np.empty(T, np.int64)
+    inv_order[order] = np.arange(T)
+    return BucketedForest(buckets=buckets, inv_order=inv_order, n_trees=T,
+                          out_dim=O)
+
+
 # ------------------------------------------------- depth-packed layout (§5.3)
 
 @dataclass

@@ -22,6 +22,10 @@ impls:
     the kernel or raises; on the CPU it runs the kernel's plain version.
   * "ref"  — the plain PyTorch gather traversal over the raw SoA tables
     (``ref.forest_predict_ref``), on either device.
+
+``forest_predict_bucketed`` runs the depth-bucketed layout
+(``bucketed.py``, PyTorch tensor code, no kernel of its own) from the same
+cache, one runner per (forest, strategy, device).
 """
 from __future__ import annotations
 
@@ -32,15 +36,27 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.api import YdfError
-from repro_torch.core.tree import Forest, pack_by_depth
+from repro_torch.core.api import EngineFailure, YdfError
+from repro_torch.core.tree import Forest, pack_by_depth, pack_depth_buckets
 from repro_torch.kernels.forest_infer import layout as node_layout
+from repro_torch.kernels.forest_infer.bucketed import build_bucketed_runner
 from repro_torch.kernels.forest_infer.forest_infer import run_single, run_tiled
 from repro_torch.kernels.forest_infer.ref import forest_predict_ref
 
 IMPLS = ("cuda", "single", "ref")
 _CACHE: "OrderedDict[int, tuple]" = OrderedDict()
 _CACHE_CAP = 8
+# Whether a bucket's predicate matmul beats its scan rounds, per device
+# type (``select_block_strategy``'s ``matmul_cheap``, which also keeps the
+# scan for buckets deeper than 6 or over the table budget). On the CPU the
+# scan wins at every depth (the reference's measurement, DESIGN.md §10.3).
+# On an H100 (chip_smoke.time_buckets, the serving GBT's buckets of depth
+# 3-6) the leaf-path block took less device time than the scan at every
+# depth at 32 and 1,024 rows, the sizes of the serving ladder, where each
+# scan round's eager launches set the time; at 4,096 rows the winner
+# changed between runs, and at 65,536 the scan won at every depth
+# (PERF.md).
+MATMUL_CHEAP = {"cpu": False, "cuda": True}
 
 
 def _forest_cache(forest) -> dict:
@@ -209,3 +225,41 @@ def forest_predict(forest: Forest, X, impl: str = "cuda",
     if impl == "single":
         return run_single(Xd, tabs.layout)
     return run_tiled(Xd, tabs.layout, tree_order=True)
+
+
+def bucketed_runner(forest: Forest, strategy: str | None = None,
+                    device="cuda"):
+    """The depth-bucketed runner (``bucketed.build_bucketed_runner``),
+    packed and uploaded once per (forest, strategy, device). ``strategy``
+    None lets the per-bucket cost model choose with the device's
+    ``MATMUL_CHEAP``; "scan"/"leaf_path" force one strategy for every
+    bucket."""
+    device = torch.device(device)
+    c = _forest_cache(forest)
+    key = ("bucketed", strategy or "auto", str(device))
+    if key not in c:
+        _check_device(device)
+        bf = pack_depth_buckets(forest, strategy=strategy,
+                                matmul_cheap=MATMUL_CHEAP[device.type])
+        c[key] = build_bucketed_runner(bf, device)
+    return c[key]
+
+
+def forest_predict_bucketed(forest: Forest, X, strategy: str | None = None,
+                            device="cuda") -> np.ndarray:
+    """Depth-bucketed prediction: (N, F) raw-value matrix -> (N, T, O)
+    numpy, original tree order. Caller errors (too-narrow X) stay
+    ``YdfError`` and a CUDA device without a card ``RuntimeError``; any
+    other failure is an ``EngineFailure`` naming the engine ("leaf_path"
+    when forced, else "bucketed")."""
+    _check_device(torch.device(device))
+    try:
+        return bucketed_runner(forest, strategy, device)(X)
+    except (YdfError, KeyboardInterrupt):   # EngineFailure is a YdfError
+        raise
+    except Exception as e:
+        name = "leaf_path" if strategy == "leaf_path" else "bucketed"
+        raise EngineFailure(
+            f"forest_infer impl {name!r} failed on a "
+            f"({np.shape(X)[0] if np.ndim(X) else '?'}, ...) batch: "
+            f"{type(e).__name__}: {e}", engine=name) from e

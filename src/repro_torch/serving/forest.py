@@ -61,13 +61,49 @@ class ForestServeBundle:
     def predict(self, batch) -> np.ndarray:
         return self.predict_encoded(self.predictor.encode(batch))
 
+    def warm_ladder(self, n_features: int,
+                    up_to: int | None = None) -> list[int]:
+        """Dispatch one zero batch at every ladder bucket up to
+        ``up_to`` rows (all buckets when None), so no production dispatch
+        pays a first call at its shape (engines.JIT_ENGINES: the kernel's
+        plan and first launch, the bucketed tables' first use, the caching
+        allocator's growth). Returns the bucket sizes touched. For the
+        numpy engines this is a cheap pass that changes nothing."""
+        touched = []
+        for b in self.buckets:
+            if up_to is not None and b > self.bucket_for(up_to):
+                break
+            self.predict_encoded(np.zeros((b, n_features), np.float32))
+            touched.append(b)
+        return touched
+
+    def predict_encoded_bulk(self, X: np.ndarray,
+                             chunk_rows: int | None = None) -> np.ndarray:
+        """Dispatch one LARGE encoded batch (an analysis sweep: permuted
+        copies, partial-dependence grids) through the bucket ladder:
+        ``chunk_rows`` is rounded DOWN to a multiple of the top bucket (and
+        is at least one top bucket), so every full chunk dispatches at one
+        exact shape with no padding and only the last partial chunk pads
+        to its bucket."""
+        n = X.shape[0]
+        top = self.buckets[-1]
+        step = (top if chunk_rows is None
+                else max(top, chunk_rows - chunk_rows % top))
+        if n <= step:
+            return self.predict_encoded(X)
+        return np.concatenate([self.predict_encoded(X[i:i + step])
+                               for i in range(0, n, step)], axis=0)
+
 
 def make_forest_server(model, engine: str | None = None,
                        buckets: tuple[int, ...] = DEFAULT_BUCKETS,
                        warmup: bool = True, device=None) -> ForestServeBundle:
     """Compile ``model`` for serving on ``device`` (None -> cuda; raises
     YdfError without a card) and wrap it in a bundle. ``warmup`` runs one
-    padded dispatch so the first request does not pay the first launch."""
+    padded dispatch at the SMALLEST bucket only, so the first request does
+    not pay the first launch; a dispatch that pads to a larger bucket still
+    pays its first call at that shape once. To pay them all up front, call
+    ``bundle.warm_ladder(len(model.features))``."""
     predictor = model.predictor(engine, device)
     bundle = ForestServeBundle(predictor, tuple(buckets))
     if warmup and len(model.features):

@@ -44,10 +44,12 @@ single-model micro-batcher cannot offer:
 The core is deliberately synchronous and clock-injected: driven by
 ``submit``/``pump``/``result`` it is deterministic under
 ``serving.faults.FakeClock``, which is how every failure path gets tier-1
-coverage.
+coverage. ``AsyncForestServer`` is the thin asyncio front end that drives
+the same core from an event loop.
 """
 from __future__ import annotations
 
+import asyncio
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -674,3 +676,83 @@ class ForestServer:
         """Synchronous convenience: submit + pump + result."""
         ticket = self.submit(batch, model=model, deadline_s=deadline_s)
         return self.result(ticket)
+
+
+# ------------------------------------------------------------ async wrapper
+
+class AsyncForestServer:
+    """The asyncio front end over the deterministic core (§9.5).
+
+    ``await aserver.predict(batch)`` submits into the shared queue and
+    awaits its ticket; a background flusher pumps the server every
+    ``flush_interval_s``, so concurrent awaiters micro-batch into shared
+    padded dispatches. Shed requests fail their future at submit. Dispatch
+    runs inline on the loop (one engine call; for multi-core serving put
+    the whole server behind a thread or process pool).
+
+    A dead kernel fails loudly here too: when ``pump`` raises (a failed
+    launch, which ``ForestServer`` never serves around), every pending
+    future gets that error and the flusher ends with it, so ``__aexit__``
+    re-raises it.
+
+        async with AsyncForestServer(server) as a:
+            preds = await asyncio.gather(*(a.predict(b) for b in batches))
+    """
+
+    def __init__(self, server: ForestServer, flush_interval_s: float = 0.002):
+        self.server = server
+        self.flush_interval_s = flush_interval_s
+        self._futures: dict[int, asyncio.Future] = {}
+        self._task: asyncio.Task | None = None
+
+    async def __aenter__(self) -> "AsyncForestServer":
+        self._task = asyncio.get_running_loop().create_task(self._run())
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        task, self._task = self._task, None
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+        self._drain()   # resolve anything the last pump completed
+
+    async def _run(self) -> None:
+        while True:
+            await asyncio.sleep(self.flush_interval_s)
+            if self._futures:
+                try:
+                    self.server.pump()
+                except Exception as e:
+                    self._drain()
+                    for fut in self._futures.values():
+                        if not fut.done():
+                            fut.set_exception(e)
+                    self._futures.clear()
+                    raise
+                self._drain()
+
+    def _drain(self) -> None:
+        for ticket in [t for t in self._futures if self.server.done(t)]:
+            fut = self._futures.pop(ticket)
+            if fut.done():
+                continue
+            try:
+                fut.set_result(self.server.result(ticket))
+            except Exception as e:      # the ticket's typed error, or the
+                fut.set_exception(e)    # dead kernel's RuntimeError
+
+    async def predict(self, batch, *, model: str | None = None,
+                      deadline_s: float | None = None) -> np.ndarray:
+        loop = asyncio.get_running_loop()
+        # pump=False: resolution happens on the flusher tick so concurrent
+        # submitters share one padded dispatch instead of racing max_batch
+        ticket = self.server.submit(batch, model=model,
+                                    deadline_s=deadline_s, pump=False)
+        fut: asyncio.Future = loop.create_future()
+        self._futures[ticket] = fut
+        if self.server.done(ticket):
+            self._drain()
+        return await fut

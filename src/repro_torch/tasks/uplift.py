@@ -11,9 +11,16 @@ tree blocks, the compiled serving engines — is reused unchanged.
 Trees grow on the learner's ``device`` (None is cuda) through the batched
 engine: on the CPU in lockstep blocks of ``tree_parallelism`` (numpy), on
 the card tree by tree, every level histogram of the four uplift stats built
-by the CUDA histogram kernel. The stats are integer multiples of the
-bootstrap counts, so the kernel's sums are exact and the card's forest
-equals the CPU's. The device engine scores only gh, class and moment
+by the CUDA histogram kernel. With a 0/1 (boolean or integer) outcome the
+stats are integer multiples of the bootstrap counts, so the kernel's sums
+are exact and the card's forest equals the CPU's on every field. With a
+numerical outcome the ``y * t * count`` stats are floats: the kernel rounds
+its exact sum of them to float32 where the CPU's numpy backend sums in
+float64, so ``split_gain`` agrees only within the reference's contract
+(gains allclose: the float32 cells move a gain whose children's scores
+nearly cancel, on the card as through the kernel's plain version on the
+CPU) and every other field is equal.
+The device engine scores only gh, class and moment
 stats, so ``growth_engine="device"`` raises ``YdfError`` before any tree
 grows (the reference starts that engine and fails inside it).
 """

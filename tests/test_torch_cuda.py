@@ -645,6 +645,20 @@ def test_uplift_forest_trained_on_the_card_equals_the_cpu(cuda):
                                 growth_engine="device")
 
 
+def test_numerical_uplift_on_the_card_moves_only_split_gain(cuda):
+    """Uplift trees on a numerical outcome: B3 rounds the float stats'
+    exact sums to float32, so the card's forest equals the CPU's on every
+    field but ``split_gain``, which agrees within ``chip_smoke.GAIN_RTOL``
+    (``equal_but_gain`` raises otherwise)."""
+    import chip_smoke
+    data = chip_smoke.numerical_uplift(20_000)
+    card = chip_smoke.train_uplift(data, cuda, num_trees=4)
+    assert card.training_logs["histogram_backend"] == "cuda"
+    r = chip_smoke.equal_but_gain(card, chip_smoke.train_uplift(
+        data, "cpu", num_trees=4))
+    assert r["split_gain_max_rel_diff"] <= chip_smoke.GAIN_RTOL
+
+
 def test_isolation_forest_serves_through_both_kernels(cuda):
     """The isolation forest's shape (513-node capacity, depth <= 8,
     path-length leaves) through B2 and B4 in each plan variant: equal to
@@ -665,3 +679,46 @@ def test_isolation_forest_serves_through_both_kernels(cuda):
     want = model._compile_finalize()(predict_naive(model.forest, X[:600]))
     got = bundle.predict({k: v[:600] for k, v in feats.items()})
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("tf32", [True, False], ids=["tf32", "fp32"])
+def test_bucketed_engines_on_the_card_equal_predict_naive(cuda, tf32,
+                                                          monkeypatch):
+    """The depth-bucketed engines on the card, each strategy, with TF32
+    matmuls allowed and not: equal to ``predict_naive`` and to the cuda
+    engine (the leaf-path matmul sums 0/+-1 products exactly either way)."""
+    import chip_smoke
+    from repro_torch.core.tree import predict_naive
+    from repro_torch.kernels.forest_infer import ops
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", tf32)
+    cases = {"gbt": (chip_smoke.build_default_gbt(n_trees=40).forest,
+                     chip_smoke.encoded_inputs(3_000, seed=5)),
+             **chip_smoke.single_zoo()}
+    for name, (forest, X) in cases.items():
+        want = predict_naive(forest, X[:300])
+        cuda_out = ops.forest_predict(forest, X, "cuda", cuda).cpu().numpy()
+        for strategy in (None, "scan", "leaf_path"):
+            got = ops.forest_predict_bucketed(forest, X, strategy, cuda)
+            np.testing.assert_array_equal(got[:300], want, err_msg=name)
+            np.testing.assert_array_equal(got, cuda_out, err_msg=name)
+
+
+def test_async_server_and_pickled_predictor_on_the_card(cuda):
+    """``chip_smoke.serve_async`` at a small size on the card: the async
+    fan-in with sheds through B2, the warmed ladder, the bulk sweep, and a
+    bucketed predictor pickled and loaded on the card."""
+    import pickle
+
+    import chip_smoke
+    from repro_torch.core.engines import compile_predictor
+    model = chip_smoke.build_default_gbt(n_trees=24)
+    out = chip_smoke.serve_async(model, cuda, n_requests=12,
+                                 bulk_rows=5_000, chunk_rows=2_048)
+    assert out["shed"] == out["expected_shed"] > 0
+    assert out["async_launches"] == out["dispatches"] > 0
+    pred = compile_predictor(model, "bucketed", cuda)
+    clone = pickle.loads(pickle.dumps(pred))
+    assert clone.name == "bucketed" and clone.engine.device.type == "cuda"
+    X = chip_smoke.encoded_inputs(500, seed=9)
+    np.testing.assert_array_equal(clone.predict_encoded(X),
+                                  pred.predict_encoded(X))

@@ -80,3 +80,16 @@ def test_static_check_tells_repro_torch_from_repro():
                      "importlib.import_module('repro.serving')\n")
     roots = [n.split(".")[0] for _, n in _imported_roots(tree)]
     assert [r for r in roots if r in BANNED_ROOTS] == ["repro", "jax", "repro"]
+
+
+def test_scans_cover_the_bucketed_traversal():
+    """The depth-bucketed traversal (PyTorch tensor code) is in both
+    scans: the AST scan's file list and the import walk's modules."""
+    import importlib
+    import pkgutil
+    import repro_torch
+    assert PORT / "kernels" / "forest_infer" / "bucketed.py" in SOURCES
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    assert "repro_torch.kernels.forest_infer.bucketed" in names
+    importlib.import_module("repro_torch.kernels.forest_infer.bucketed")
