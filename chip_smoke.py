@@ -18,7 +18,9 @@ train the paper's best settings, the benchmark_rank1 GBT and Random
 Forest (sparse-oblique splits; 2 trees each), and serve them through both
 traversal kernels; and train the tasks (LambdaMART ranking through both
 histogram kernels, uplift trees, an isolation forest) and serve them; serve
-through the depth-bucketed engines and the asyncio front end.
+through the depth-bucketed engines and the asyncio front end; inspect, edit,
+build and analyze models, run the meta-learners and drive the command line
+(ROADMAP A6).
 The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
@@ -255,6 +257,42 @@ JSON line each:
                      and loaded on the card, its engine kept, its answers
                      equal.
 
+ 28. inspect_build — the typed tree API (ROADMAP A6): the trained GBT, RF
+                     and CART forests to typed trees and back
+                     (``Forest.from_trees(f.to_trees(), like=f)``), equal on
+                     every field typed trees carry (CART's pruned tree is
+                     compacted by the first round trip, the same leaves
+                     through B2, then a fixed point); the inspector's stats
+                     and ``summary(verbose=2)``; a RandomForestBuilder model
+                     of BUILT_TREES trees with categorical conditions built
+                     on the card, serving BUILT_ROWS raw rows through B2 and
+                     B4 equal to the host oracle bit for bit, both kernels
+                     in each plan variant (counts reset just before, read
+                     just after).
+ 29. metalearners  — a 3-trial tuner, an Ensembler (GBT + RF), a Calibrator
+                     (GBT) and a FeatureSelector (RF over SELECT_COLUMNS
+                     columns, ``max_removals=2``) at META_ROWS rows, with
+                     META_GBT_TREES-tree GBTs and META_RF_TREES-tree RFs of
+                     depth META_RF_DEPTH on the card (B3, B2) and on the
+                     CPU: the same choices, the GBTs ``equal_but_gain``,
+                     the RFs identical, the same predictions.
+ 30. analyze       — ``analyze()`` of the trained GBT over the 10,000
+                     held-out rows (permutation importances of 28 columns x
+                     ANALYZE_REPS repetitions, the evaluation, PDP at 16
+                     points over 256 rows a column) and out-of-bag
+                     permutation importances of the ensembler's RF over its
+                     META_ROWS training rows (OOB_REPS), every sweep through
+                     B2 (counts reset just before, read just after); each
+                     ``to_dict()`` equal to the port's CPU run; wall
+                     seconds beside B2's launches and device ms summed.
+ 31. cli           — ``python -m repro_torch.cli`` subprocesses on a
+                     META_ROWS-row CSV under ``build/``: train on the card
+                     and on the CPU, then show_model, evaluate, predict (each
+                     device), analyze, serve, benchmark_inference
+                     (CLI_BENCH_ROWS rows) and profile (train, infer)
+                     together; every verb exits 0, the predict CSVs are
+                     byte-identical, the Chrome traces validate.
+
 train_uplift also trains the numerical-outcome case (``numerical_uplift``)
 and holds it to the CPU with ``equal_but_gain``. After the timings phase,
 ``timings_bucketed`` times the bucketed engines (auto, scan and leaf_path
@@ -270,7 +308,8 @@ The timings phase also times B2 and B4 on the rank1 forests at 10,000 rows
 operations per oblique node), and the kernels line carries those numbers
 under each traversal kernel's "oblique" key, and on the isolation forest
 at 104,000 rows under its "isolation" key; B1 and B3 carry the task phases'
-launches under "task_launches". Then the kernels line (``{"kernels": [...]}``), the card's name and power
+launches under "task_launches", and B2, B3 and B4 the A6 phases' under
+"a6_launches". Then the kernels line (``{"kernels": [...]}``), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 1 at once.
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -391,6 +430,25 @@ UPLIFT_SCALE, UPLIFT_NOISE, UPLIFT_NOISE_SEED = 3.7, 0.9, 5
 BUCKETED_RF_TIMED = (10_000, 100_000)
 ASYNC_CAP_SHARE = 0.8
 BULK_ROWS, BULK_CHUNK = 65_536, 4096
+# ROADMAP A6: typed-tree round trips, a RandomForestBuilder model of
+# BUILT_TREES trees served on BUILT_ROWS raw rows; the analysis sweep over
+# the held-out rows (ANALYZE_REPS permutation repetitions, PDP at its
+# defaults); the meta-learners and the CLI at META_ROWS rows with
+# META_GBT_TREES-tree GBTs and META_RF_TREES-tree Random Forests of depth
+# META_RF_DEPTH, the feature selector over SELECT_COLUMNS columns; the OOB
+# sweep (OOB_REPS) over the ensembler's card-trained RF and its META_ROWS
+# training rows; benchmark_inference on CLI_BENCH_ROWS rows (its naive row
+# included). The sizes are cut to keep the A6 phases near 2 minutes: at
+# the default RF's depth and with the OOB sweep over the 16-tree RF's
+# 100,000 rows, the RF fits and that sweep with its CPU oracle took two
+# thirds of the phases' 237 s on an H100 (PERF.md)
+ROUNDTRIP_FIELDS = tuple(k for k in FOREST_FIELDS if k != "split_gain") \
+    + ("tree_class", "init_pred")
+BUILT_TREES, BUILT_ROWS = 32, 4096
+ANALYZE_REPS, OOB_REPS = 3, 1
+META_ROWS, META_GBT_TREES, META_RF_TREES, META_RF_DEPTH = 20_000, 20, 8, 8
+SELECT_COLUMNS = 6
+CLI_BENCH_ROWS, CLI_TIMEOUT_S = 256, 300
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -1847,10 +1905,10 @@ def run_wide(device, backend) -> dict:
 
 # ------------------------------------------------ saving and checkpoints
 
-def same_forest(a, b) -> bool:
-    """Every Forest field of two forests equal: the arrays, the depth and
-    the output dimension."""
-    keys = FOREST_FIELDS + ("tree_class", "init_pred")
+def same_forest(a, b, keys=FOREST_FIELDS + ("tree_class", "init_pred")
+                ) -> bool:
+    """Every Forest field of two forests equal (``keys``: all the arrays):
+    the arrays, the depth and the output dimension."""
     return (a.n_trees == b.n_trees and a.depth == b.depth
             and a.out_dim == b.out_dim
             and all(np.array_equal(getattr(a, k), getattr(b, k)) for k in keys))
@@ -2976,6 +3034,477 @@ def serve_async(model, device, n_requests: int = 50,
             "pickled_engine": clone.name, "pickled_bytes": len(blob)}
 
 
+# ----------------------------------------------- ROADMAP A6 (inspect, ...)
+
+def roundtrip_equal(a, b) -> bool:
+    """The fields a typed-tree round trip carries (the reference test's
+    ``assert_forest_equal``: every Forest field but split_gain, which typed
+    trees do not hold) equal, with the depth, output dimension and
+    feature names."""
+    return a.feature_names == b.feature_names and same_forest(
+        a, b, keys=ROUNDTRIP_FIELDS)
+
+
+def built_forest_model(device, n_trees: int = BUILT_TREES, seed: int = SEED):
+    """A RandomForestBuilder model over the Adult-like schema: ``n_trees``
+    hand-grown trees of depth up to MAX_DEPTH from ``seed``, numerical
+    thresholds drawn from each column's range and categorical conditions
+    given as category strings (resolved against the declared
+    vocabularies), class distributions in the leaves; built on
+    ``device``."""
+    from repro_torch.core import py_tree as pt
+    vocabs = {"workclass": _WORKCLASS, "education": _EDUCATION,
+              "occupation": _OCCUPATION}
+    rng = np.random.default_rng(seed + 5)
+
+    def grow(d: int):
+        if d >= MAX_DEPTH or (d >= 2 and rng.random() < 0.25):
+            p = float(rng.uniform())
+            return pt.Leaf(pt.ProbabilityValue((1.0 - p, p)))
+        j = int(rng.integers(len(FEATURES)))
+        name = FEATURES[j]
+        if name in NUMERICAL_RANGE:
+            cond = pt.NumericalHigherThan(
+                feature=j, threshold=float(rng.uniform(*NUMERICAL_RANGE[name])))
+        else:
+            vocab = vocabs[name]
+            k = int(rng.integers(1, len(vocab)))
+            cond = pt.CategoricalIsIn(feature=j, categories=tuple(
+                str(c) for c in rng.choice(vocab, size=k, replace=False)))
+        return pt.NonLeaf(condition=cond, neg_child=grow(d + 1),
+                          pos_child=grow(d + 1))
+
+    b = pt.RandomForestBuilder(
+        label="income", classes=["<=50K", ">50K"],
+        features=[(n, "CATEGORICAL", vocabs[n]) if n in vocabs else n
+                  for n in FEATURES])
+    for _ in range(n_trees):
+        b.add_tree(grow(0))
+    return b.build(device=device)
+
+
+def inspect_build(models: dict, rows: dict, device) -> dict:
+    """The typed tree API on the card's models. Each trained forest of
+    ``models`` (name -> model) goes to typed trees and back
+    (``Forest.from_trees(f.to_trees(), like=f)``): equal to the forest on
+    every field ``roundtrip_equal`` reads; the pruned CART tree, whose
+    pruned slots are unreachable, is compacted by the first round trip (B2
+    gives the same leaves on ``rows``) and is equal from then on. The
+    inspector's stats and ``summary(verbose=2)`` are read. Then a
+    RandomForestBuilder model with categorical conditions
+    (``built_forest_model``) is built on the card and serves BUILT_ROWS raw
+    rows through the cuda engine (B2) and ``forest_predict(impl="single")``
+    (B4), both equal to ``finalize(predict_naive(encode(rows)))`` bit for
+    bit, and both kernels in each plan variant (``check_variants``)."""
+    import torch
+    from repro_torch.core.dataspec import BatchEncoder
+    from repro_torch.core.tree import Forest, predict_naive
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    from repro_torch.obs import clock
+    out = {}
+    for name, m in models.items():
+        f = m.forest
+        t0 = clock.perf()
+        back = Forest.from_trees(f.to_trees(), like=f)
+        seconds = clock.perf() - t0
+        X = BatchEncoder(m.spec, m.features).encode(
+            {k: rows[k] for k in m.features})
+        same = roundtrip_equal(back, f)
+        if not same and name != "cart":
+            raise AssertionError(f"{name}: the round trip differs")
+        if not same:
+            # a pruned tree: the same leaves through B2, then a fixed point
+            if not torch.equal(ops.forest_predict(back, X, "cuda", device),
+                               ops.forest_predict(f, X, "cuda", device)):
+                raise AssertionError(f"{name}: the round trip changed the "
+                                     "served leaves")
+            again = Forest.from_trees(back.to_trees(), like=back)
+            if not roundtrip_equal(again, back):
+                raise AssertionError(f"{name}: the round trip is not "
+                                     "idempotent")
+        insp = m.inspect()
+        verbose = m.summary(verbose=2)
+        if "Tree depths:" not in verbose:
+            raise AssertionError(f"{name}: summary(verbose=2) lacks the "
+                                 "tree stats")
+        out[name] = {"trees": f.n_trees, "max_nodes": f.max_nodes,
+                     "roundtrip_equal": same,
+                     "compacted_nodes": int(back.n_nodes.sum()),
+                     "nodes": int(f.n_nodes.sum()),
+                     "roundtrip_seconds": seconds,
+                     "stats": insp.stats_summary(),
+                     "summary_lines": len(verbose.splitlines())}
+
+    forest_infer.LAUNCHES = 0            # the built model's path starts here
+    forest_infer.SINGLE_LAUNCHES = 0
+    t0 = clock.perf()
+    built = built_forest_model(device)
+    build_s = clock.perf() - t0
+    req = raw_request(np.random.default_rng(SEED + 6), BUILT_ROWS)
+    got = built.predict(req, device=device)
+    X = BatchEncoder(built.spec, built.features).encode(req)
+    single = ops.forest_predict(built.forest, X, "single", device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    tiled_launches = forest_infer.LAUNCHES          # ... and ends here
+    single_launches = forest_infer.SINGLE_LAUNCHES
+    if device.type == "cuda" and (tiled_launches <= 0
+                                  or single_launches != 1):
+        raise AssertionError(f"the built model made {tiled_launches} B2 and "
+                             f"{single_launches} B4 launches")
+    leaves = predict_naive(built.forest, X)
+    if not np.array_equal(got, built._compile_finalize()(leaves)):
+        raise AssertionError("the built model's answers != the host oracle")
+    if not np.array_equal(single.cpu().numpy(), leaves):
+        raise AssertionError("B4 on the built model != predict_naive")
+    f = built.forest
+    out["built"] = {"trees": f.n_trees, "max_nodes": f.max_nodes,
+                    "depth": f.depth, "rows": BUILT_ROWS,
+                    "categorical_nodes": int(f.cat_mask.any(-1).sum()),
+                    "build_seconds": build_s,
+                    "tiled_launches": tiled_launches,
+                    "single_launches": single_launches,
+                    "variants": check_variants(f, X, device)}
+    return out
+
+
+def b2_device_ms(forest, sizes: list, device) -> float | None:
+    """B2's device milliseconds summed over a sweep's dispatches: the
+    device time of one ``forest_predict(impl="cuda")`` at each distinct
+    row count of ``sizes`` (``device_only_ms`` over standard-normal rows
+    already on the card) times the dispatches of that count. None off the
+    card."""
+    import torch
+    from repro_torch.kernels.forest_infer import ops
+    if device.type != "cuda":
+        return None
+    F = len(forest.feature_names)
+    total = 0.0
+    for n, count in zip(*np.unique(np.asarray(sizes), return_counts=True)):
+        Xd = torch.from_numpy(np.random.default_rng(int(n)).normal(
+            size=(int(n), F)).astype(np.float32)).to(device)
+        total += int(count) * device_only_ms(
+            lambda: ops.forest_predict(forest, Xd, "cuda", device), reps=5,
+            warmup=1)
+    return total
+
+
+def recording(pred) -> tuple:
+    """Wrap ``pred``'s engine so each dispatch's row count is recorded;
+    returns (sizes list, undo)."""
+    sizes, call = [], pred.engine.per_tree
+    pred.engine.per_tree = lambda X: (sizes.append(len(X)), call(X))[1]
+
+    def undo():
+        pred.engine.per_tree = call
+    return sizes, undo
+
+
+def analyze_phase(gbt, rf, data: dict, rows: dict, device) -> dict:
+    """Model analysis on the card (ROADMAP A6). ``gbt.analyze`` over the
+    held-out ``rows``: permutation importances (ANALYZE_REPS repetitions of
+    every column, replicas stacked into row-budget dispatches), the
+    evaluation and partial dependence (16 grid points over 256 sampled rows
+    per column), every sweep through the cuda engine (B2); then
+    out-of-bag permutation importances of the card-trained Random Forest
+    ``rf`` over its training ``data`` (OOB_REPS repetition), through
+    ``per_tree`` (B2's tree-order store). Each result's ``to_dict()`` equals the port's own
+    CPU run exactly (B2 is bit-identical to ``predict_naive``, and the rest
+    is the same numpy; the CPU runs take the "bucketed" engine, the
+    fastest host engine, whose leaves are the same bits). Wall seconds, B2
+    launches and B2's device milliseconds summed (``b2_device_ms``) are
+    reported side by side: the gap is host work (encode, copies, the
+    aggregation of (N, T, O) and the scoring)."""
+    from repro_torch.analysis import oob_permutation_importances
+    from repro_torch.kernels.forest_infer import forest_infer
+    from repro_torch.obs import clock
+    out = {}
+    pred = gbt.predictor(None, device)
+    sizes, undo = recording(pred)
+    forest_infer.LAUNCHES = 0            # the analysis sweep starts here
+    t0 = clock.perf()
+    try:
+        report = gbt.analyze(rows, permutation_repetitions=ANALYZE_REPS,
+                             device=device)
+    finally:
+        undo()
+    seconds = clock.perf() - t0
+    launches = forest_infer.LAUNCHES     # ... and ends here
+    if device.type == "cuda" and (launches <= 0 or launches < len(sizes)):
+        raise AssertionError(f"{len(sizes)} analysis dispatches made "
+                             f"{launches} B2 launches")
+    t0 = clock.perf()
+    cpu = gbt.analyze(rows, permutation_repetitions=ANALYZE_REPS,
+                      device="cpu", engine="bucketed")
+    cpu_seconds = clock.perf() - t0
+    if report.to_dict() != cpu.to_dict():
+        raise AssertionError("the card's analysis report != the CPU's")
+    perm = report.importances[-1]
+    out["gbt"] = {"rows": len(rows["label"]), "trees": gbt.forest.n_trees,
+                  "features": len(gbt.features), "repetitions": ANALYZE_REPS,
+                  "replicas": len(gbt.features) * ANALYZE_REPS,
+                  "pdp_curves": len(report.pdp),
+                  "pdp_rows": int(report.pdp[0].n_sample),
+                  "pdp_grid": len(report.pdp[0].grid),
+                  "dispatches": len(sizes), "dispatched_rows": int(sum(sizes)),
+                  "launches": launches, "seconds": seconds,
+                  "b2_device_ms_summed": b2_device_ms(gbt.forest, sizes,
+                                                      device),
+                  "cpu_seconds": cpu_seconds, "equal_to_cpu": True,
+                  "top_features": perm.ranking()[:3],
+                  "baseline_accuracy": perm.baseline}
+
+    pred = rf.predictor(None, device)
+    sizes, undo = recording(pred)
+    forest_infer.LAUNCHES = 0            # the OOB sweep starts here
+    t0 = clock.perf()
+    try:
+        table, base = oob_permutation_importances(
+            rf, data, repetitions=OOB_REPS, device=device)
+    finally:
+        undo()
+    seconds = clock.perf() - t0
+    launches = forest_infer.LAUNCHES     # ... and ends here
+    if device.type == "cuda" and (launches <= 0 or launches < len(sizes)):
+        raise AssertionError(f"{len(sizes)} OOB dispatches made {launches} "
+                             "B2 launches")
+    t0 = clock.perf()
+    cpu_table, cpu_base = oob_permutation_importances(
+        rf, data, repetitions=OOB_REPS, device="cpu", engine="bucketed")
+    cpu_seconds = clock.perf() - t0
+    if table.to_dict() != cpu_table.to_dict() or \
+            base.to_dict() != cpu_base.to_dict():
+        raise AssertionError("the card's OOB importances != the CPU's")
+    se = rf.self_evaluation
+    if se is None or abs(base["accuracy"] - se["accuracy"]) > 1e-12:
+        raise AssertionError(f"OOB baseline {base['accuracy']} != the "
+                             f"training self-evaluation {se and se.metrics}")
+    out["rf_oob"] = {"rows": len(data["label"]), "trees": rf.forest.n_trees,
+                     "repetitions": OOB_REPS, "dispatches": len(sizes),
+                     "dispatched_rows": int(sum(sizes)),
+                     "launches": launches, "seconds": seconds,
+                     "b2_device_ms_summed": b2_device_ms(rf.forest, sizes,
+                                                         device),
+                     "cpu_seconds": cpu_seconds, "equal_to_cpu": True,
+                     "top_features": table.ranking()[:3],
+                     "oob_accuracy": base["accuracy"]}
+    return out
+
+
+def metalearner_phase(device, rows: int = META_ROWS) -> tuple:
+    """The meta-learners on the card (ROADMAP A6), each run again on the CPU
+    with the same arguments, at META_ROWS rows of synth_higgs_like with
+    META_GBT_TREES-tree GBTs and META_RF_TREES-tree Random Forests of depth
+    META_RF_DEPTH (the default batched engine: every histogram through B3, the tuner's and
+    calibrator's scoring through B2): a HyperParameterTuner over 3 trials,
+    an Ensembler (GBT + RF), a Calibrator (GBT) and a FeatureSelector (RF,
+    out-of-bag) over the first SELECT_COLUMNS columns with
+    ``max_removals=2``. Each makes the CPU run's choice (trial log,
+    kept features) and its sub-models follow chip_smoke's rule for their
+    learner: the GBTs ``equal_but_gain`` (float gradients through B3), the
+    RFs ``identical``; so every meta-model's predictions equal the CPU's.
+    Counts of B3 and B2 are reset just before the card's runs and read just
+    after. Returns (summary, the ensembler's card-trained RF, its training
+    data): the OOB sweep of ``analyze_phase`` runs on them."""
+    import torch
+    from repro_torch.core import (Calibrator, Ensembler, FeatureSelector,
+                                  GradientBoostedTreesLearner,
+                                  HyperParameterTuner, RandomForestLearner)
+    from repro_torch.kernels.forest_infer import forest_infer
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.obs import clock
+    data = higgs_like(rows)
+    probe = {k: v[:2000] for k, v in data.items() if k != "label"}
+    cols = [f"num_{j}" for j in range(SELECT_COLUMNS)]
+    narrow = {k: data[k] for k in cols + ["label"]}
+    gbt = lambda **kw: GradientBoostedTreesLearner(
+        num_trees=META_GBT_TREES, **kw)
+    rf = lambda **kw: RandomForestLearner(num_trees=META_RF_TREES,
+                                          max_depth=META_RF_DEPTH, **kw)
+    space = {"max_depth": [3, 5], "shrinkage": [0.1, 0.2]}
+
+    def run(dev):
+        t = {}
+        t0 = clock.perf()
+        t["tuner"] = HyperParameterTuner(
+            gbt, space, label="label", n_trials=3, seed=LEARNER_SEED,
+            device=dev).train(data)
+        t1 = clock.perf()
+        t["ensembler"] = Ensembler(
+            [gbt(label="label", seed=LEARNER_SEED),
+             rf(label="label", seed=LEARNER_SEED)],
+            label="label", device=dev).train(data)
+        t2 = clock.perf()
+        t["calibrator"] = Calibrator(gbt(label="label", seed=LEARNER_SEED),
+                                     label="label", device=dev).train(data)
+        t3 = clock.perf()
+        t["selector"] = FeatureSelector(rf, label="label", max_removals=2,
+                                        device=dev).train(narrow)
+        t4 = clock.perf()
+        secs = dict(zip(t, np.diff([t0, t1, t2, t3, t4]).tolist()))
+        return t, secs
+
+    histogram.LAUNCHES = 0               # the card's runs start here
+    forest_infer.LAUNCHES = 0
+    card, card_s = run(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    b3, b2 = histogram.LAUNCHES, forest_infer.LAUNCHES   # ... end here
+    if device.type == "cuda" and (b3 <= 0 or b2 <= 0):
+        raise AssertionError(f"the meta-learners made {b3} B3 and {b2} B2 "
+                             "launches")
+    cpu, cpu_s = run("cpu")
+    gates = {}
+    tc, tp = card["tuner"], cpu["tuner"]
+    if tc.tuning_logs != tp.tuning_logs:
+        raise AssertionError(f"tuner: card {tc.tuning_logs} != CPU "
+                             f"{tp.tuning_logs}")
+    gates["tuner"] = {"best": tc.tuning_logs["best"],
+                      "score": tc.tuning_logs["score"],
+                      "trials": len(tc.tuning_logs["trials"]),
+                      "gbt": equal_but_gain(tc, tp)}
+    ec, ep = card["ensembler"], cpu["ensembler"]
+    if not identical(ec.models[1], ep.models[1]):
+        raise AssertionError("ensembler: the card's RF != the CPU's")
+    gates["ensembler"] = {"gbt": equal_but_gain(ec.models[0], ep.models[0]),
+                          "rf_identical": True}
+    cc, cp = card["calibrator"], cpu["calibrator"]
+    if (cc.a, cc.b) != (cp.a, cp.b):
+        raise AssertionError(f"calibrator: card (a, b) = {(cc.a, cc.b)} != "
+                             f"CPU {(cp.a, cp.b)}")
+    gates["calibrator"] = {"a": cc.a, "b": cc.b,
+                           "gbt": equal_but_gain(cc.base, cp.base)}
+    sc, sp = card["selector"], cpu["selector"]
+    if (sc.selected_features, sc.removed_features) != \
+            (sp.selected_features, sp.removed_features) or \
+            not identical(sc, sp):
+        raise AssertionError(f"selector: card kept {sc.selected_features}, "
+                             f"CPU {sp.selected_features}")
+    gates["selector"] = {"columns": cols, "kept": sc.selected_features,
+                         "removed": sc.removed_features,
+                         "oob_accuracy": sc.self_evaluation["accuracy"]}
+    for name in card:
+        if not np.array_equal(card[name].predict(probe, device=device),
+                              cpu[name].predict(probe, device="cpu")):
+            raise AssertionError(f"{name}: the card's predictions != CPU's")
+    return ({"rows": rows, "gbt_trees": META_GBT_TREES,
+             "rf_trees": META_RF_TREES, "rf_depth": META_RF_DEPTH,
+             "b3_launches": b3, "b2_launches": b2, "card_seconds": card_s,
+             "cpu_seconds": cpu_s, **gates, "predictions_equal_cpu": True},
+            ec.models[1], data)
+
+
+def cli_phase(scratch: str, device, rows: int = META_ROWS) -> dict:
+    """``python -m repro_torch.cli`` in subprocesses on a META_ROWS-row CSV
+    of synth_higgs_like written under ``scratch``: ``train`` (GBT,
+    META_GBT_TREES trees) with ``--device=cuda`` and ``--device=cpu``, then
+    together ``show_model``, ``evaluate``, ``predict`` (on each device, its
+    own device's model), ``analyze``, ``serve`` and ``benchmark_inference``
+    (both on CLI_BENCH_ROWS rows) and ``profile`` (train and infer). Every
+    verb exits 0; the two ``predict`` CSVs are byte-identical; the
+    profiles' Chrome traces validate, and the infer trace's dispatches name
+    the cuda engine, as do ``serve``'s chain and ``benchmark_inference``'s
+    rows. Every process started is waited for or killed. (``device`` is the card; a
+    CPU rehearsal passes the CPU, where the "card" runs are CPU runs and
+    the engine named is "ref".)"""
+    from repro_torch.data.io import write_dataset
+    from repro_torch.obs import clock
+    from repro_torch.obs.export import validate_chrome_trace
+    d = Path(scratch) / "cli"
+    d.mkdir()
+    data = higgs_like(rows)
+    csv, small = f"csv:{d / 'train.csv'}", f"csv:{d / 'small.csv'}"
+    write_dataset(data, csv)
+    write_dataset({k: v[:CLI_BENCH_ROWS] for k, v in data.items()}, small)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs: dict = {}
+
+    def start(name, *argv):
+        log = open(d / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.cli", *argv], cwd=d,
+            env=env, stdout=log, stderr=subprocess.STDOUT), log)
+
+    def wait(names):
+        for name in names:
+            proc, log = procs[name]
+            try:
+                rc = proc.wait(timeout=CLI_TIMEOUT_S)
+            finally:
+                log.close()
+            if rc != 0:
+                raise AssertionError(f"cli {name} exited {rc}: "
+                                     f"{(d / f'{name}.log').read_text()[-2000:]}")
+
+    def text(name):
+        return (d / f"{name}.log").read_text()
+
+    hp = ["--hparam", f"num_trees={META_GBT_TREES}"]
+    card, engine = device.type, ("cuda" if device.type == "cuda" else "ref")
+    t0 = clock.perf()
+    try:
+        for dev in ("cuda", "cpu"):
+            start(f"train_{dev}", "train", f"--dataset={csv}", "--label=label",
+                  f"--output={d / ('model_' + dev)}",
+                  f"--device={card if dev == 'cuda' else 'cpu'}", *hp)
+        wait(["train_cuda", "train_cpu"])
+        train_s = clock.perf() - t0
+        m, on = f"--model={d / 'model_cuda'}", f"--device={card}"
+        start("show_model", "show_model", m, "--verbose=3", on)
+        start("evaluate", "evaluate", f"--dataset={csv}", m, "--json", on)
+        for dev in ("cuda", "cpu"):
+            start(f"predict_{dev}", "predict", f"--dataset={csv}",
+                  f"--model={d / ('model_' + dev)}",
+                  f"--output=csv:{d / ('pred_' + dev + '.csv')}",
+                  on if dev == "cuda" else "--device=cpu")
+        start("analyze", "analyze", f"--dataset={csv}", m,
+              "--repetitions=1", f"--output={d / 'report.json'}", on)
+        start("serve", "serve", f"--dataset={small}", m, "--request-rows=32",
+              f"--output=csv:{d / 'served.csv'}", on)
+        start("benchmark_inference", "benchmark_inference",
+              f"--dataset={small}", m, "--repetitions=1", on)
+        start("profile_train", "profile", "train", f"--dataset={csv}",
+              "--label=label", f"--trace={d / 'train_trace.json'}",
+              "--hparam", "num_trees=5", on)
+        start("profile_infer", "profile", "infer", f"--dataset={csv}", m,
+              f"--trace={d / 'infer_trace.json'}", "--repetitions=2", on)
+        wait([n for n in procs if not n.startswith("train_")])
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    seconds = clock.perf() - t0
+    a = (d / "pred_cuda.csv").read_bytes()
+    if a != (d / "pred_cpu.csv").read_bytes():
+        raise AssertionError("predict's CSV on the card != on the CPU")
+    traces = {}
+    for name in ("train_trace", "infer_trace"):
+        doc = json.loads((d / f"{name}.json").read_text())
+        validate_chrome_trace(doc)
+        traces[name] = sum(e["ph"] == "X" for e in doc["traceEvents"])
+    engines = {e["args"].get("engine") for e in json.loads(
+        (d / "infer_trace.json").read_text())["traceEvents"]
+        if e["name"] == "engines/dispatch"}
+    if engines != {engine}:
+        raise AssertionError(f"profile infer dispatched through {engines}")
+    if f"{engine}[closed]" not in text("serve"):
+        raise AssertionError(f"serve's chain does not name {engine}")
+    if f"  {engine} " not in text("benchmark_inference"):
+        raise AssertionError(f"benchmark_inference lists no {engine} row")
+    report = json.loads((d / "report.json").read_text())
+    return {"rows": rows, "trees": META_GBT_TREES,
+            "verbs": sorted(procs), "exit_codes": 0,
+            "train_seconds": train_s, "seconds": seconds,
+            "predict_csv_bytes": len(a), "predict_csv_identical": True,
+            "trace_spans": traces,
+            "analysis_tables": [t["kind"] for t in
+                                report["variable_importances"]],
+            "serve_tail": text("serve").splitlines()[-3:],
+            "benchmark_inference": text("benchmark_inference").splitlines()}
+
+
 def time_bucketed(cases: dict, device) -> dict:
     """Per named (forest, X) case, from one run: the whole engine call
     (``engine.per_tree``: host rows in, host numpy out; ``device_ms``) of
@@ -3294,6 +3823,31 @@ def main() -> int:
     emit(phase="serve_async", card=card, **served_async,
          launches=async_launches)
 
+    # the typed tree API, model analysis, the meta-learners and the CLI
+    # (ROADMAP A6); each phase resets the counts it reads
+    scratch = scratch_dir()
+    try:
+        t0 = clock.perf()
+        inspected = inspect_build({"gbt": trained, "rf": rf, "cart": cart},
+                                  valid, device)
+        emit(phase="inspect_build", card=card, **inspected,
+             seconds=clock.perf() - t0)
+        t0 = clock.perf()
+        meta, meta_rf, meta_data = metalearner_phase(device)
+        emit(phase="metalearners", card=card, **meta,
+             seconds=clock.perf() - t0)
+        t0 = clock.perf()
+        analyzed = analyze_phase(trained, meta_rf, meta_data, valid, device)
+        emit(phase="analyze", card=card, **analyzed,
+             seconds=clock.perf() - t0)
+        emit(phase="cli", card=card, **cli_phase(scratch, device))
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    a6_tiled = {"inspect_build": inspected["built"]["tiled_launches"],
+                "analyze": analyzed["gbt"]["launches"],
+                "analyze_oob": analyzed["rf_oob"]["launches"],
+                "metalearners": meta["b2_launches"]}
+
     # the single-tree kernel's path: forest_predict(impl="single") on the
     # trained forest and on the default GBT
     X_gbt = encoded_inputs(MAIN_N, seed=12)
@@ -3418,6 +3972,7 @@ def main() -> int:
                           "ranking_and_uplift_served": tasks_launches,
                           "serve_bucketed": bucketed_launches,
                           "serve_async": async_launches},
+        "a6_launches": a6_tiled,
     }, {
         "name": "fused_split",
         "route": "cuda",
@@ -3447,6 +4002,7 @@ def main() -> int:
         "launches_per_call": h["launches_per_call"],
         "rank1_launches": {k: v["launches"] for k, v in rank1_run.items()},
         "task_launches": task_hist,
+        "a6_launches": {"metalearners": meta["b3_launches"]},
     }, {
         "name": "forest_single",
         "route": "cuda",
@@ -3464,6 +4020,8 @@ def main() -> int:
                                rank1_served["single_launches"]),
         "isolation": isolation_row(single_iso[main_i],
                                    iso_run["single_launches"]),
+        "a6_launches": {"inspect_build":
+                        inspected["built"]["single_launches"]},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,13 @@ asyncio front end ``AsyncForestServer``; ``benchmark_inference`` times
 every engine a model has on a device, the depth-bucketed "bucketed" and
 "leaf_path" engines among them.
 
+Models are inspected, edited and built as typed trees
+(``core.py_tree``), analysed (``analysis``: permutation, out-of-bag and
+partial-dependence sweeps through the traversal kernels), tuned, ensembled,
+calibrated and feature-selected (``core.metalearners``), imported from
+sklearn (``interop``) and driven from the shell (``python -m
+repro_torch.cli``).
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 """

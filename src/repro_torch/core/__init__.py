@@ -28,6 +28,11 @@ _LAZY = {
     "select_cpu_engine": "repro_torch.core.engines",
     "benchmark_inference": "repro_torch.core.engines",
     "resume_training": "repro_torch.train.checkpoint",
+    "HyperParameterTuner": "repro_torch.core.metalearners",
+    "Ensembler": "repro_torch.core.metalearners",
+    "Calibrator": "repro_torch.core.metalearners",
+    "FeatureSelector": "repro_torch.core.metalearners",
+    "cross_validate": "repro_torch.core.metalearners",
 }
 
 

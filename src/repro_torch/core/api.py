@@ -106,10 +106,13 @@ class Model(abc.ABC):
         return ev
 
     def analyze(self, dataset=None, **kwargs):
-        raise YdfError(
-            "Model analysis (permutation importances, partial dependence, "
-            "reports) is not ported yet (ROADMAP A6). Structural importances "
-            "are available now: model.variable_importances().")
+        """Model-analysis report (DESIGN.md §8): structural variable
+        importances always; permutation importances, partial dependence and
+        an evaluation when a dataset is given. Decision-forest models route
+        every analysis sweep through the compiled serving stack on
+        ``device`` (None: the card; ``device="cpu"`` runs on the host)."""
+        from repro_torch.analysis import analyze_model
+        return analyze_model(self, dataset, **kwargs)
 
     # ---- self-description (show_model analogue)
     def summary(self, verbose: int | bool = False) -> str:
@@ -326,10 +329,7 @@ _LEARNERS: dict[str, type] = {}
 
 # the reference's learners that the port does not train yet, and the
 # ROADMAP item that brings each
-_NOT_PORTED = {
-    "HYPERPARAMETER_TUNER": "A6", "ENSEMBLER": "A6", "CALIBRATOR": "A6",
-    "FEATURE_SELECTOR": "A6", "LINEAR": "A8",
-}
+_NOT_PORTED = {"LINEAR": "A8"}
 
 
 def register_learner(name: str) -> Callable[[type], type]:
@@ -386,5 +386,5 @@ def _ensure_builtin() -> None:
     if _BUILTIN:
         return
     _BUILTIN = True
-    from repro_torch.core import cart, gbt, rf  # noqa: F401
+    from repro_torch.core import cart, gbt, metalearners, rf  # noqa: F401
     from repro_torch import tasks  # noqa: F401  (uplift trees, isolation forest)

@@ -406,8 +406,12 @@ class BatchEncoder:
                                    order.astype(np.int32)))
 
     def encode(self, data) -> np.ndarray:
-        """data: raw column mapping (feature columns suffice) ->
+        """data: raw column mapping (feature columns suffice) or an
+        already-encoded VerticalDataset (the meta-learners' folds) ->
         (N, F) float32 matrix."""
+        if isinstance(data, VerticalDataset):
+            from repro_torch.core.models import raw_matrix
+            return raw_matrix(data, self.features)
         missing = [n for n in self.features if n not in data]
         if missing:
             raise YdfError(

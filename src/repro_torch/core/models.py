@@ -245,18 +245,14 @@ class DecisionForestModel(Model):
         the model, so the predictor does not hold the model alive."""
         raise NotImplementedError
 
-    # -------- typed tree API (ROADMAP A6)
+    # -------- typed tree API (DESIGN.md §7)
     def inspect(self):
-        raise YdfError(
-            "The typed tree API (py_tree.ModelInspector) is not ported yet "
-            "(ROADMAP A6). The Forest SoA is model.forest.")
+        """A ``py_tree.ModelInspector``: iterate trees as typed nodes,
+        per-tree depth/leaf stats, plot_tree-style ASCII rendering."""
+        from repro_torch.core.py_tree import ModelInspector
+        return ModelInspector(self)
 
     def summary(self, verbose: int | bool = False) -> str:
-        if verbose:
-            raise YdfError(
-                "summary(verbose=...) renders trees through "
-                "py_tree.ModelInspector, which is not ported yet (ROADMAP "
-                "A6). Solution: call summary() without verbose.")
         c = self.forest.node_counts()
         lines = [f"Type: {type(self).__name__}",
                  f"Task: {self.task.value}", f'Label: "{self.label}"',
@@ -285,6 +281,17 @@ class DecisionForestModel(Model):
                     f"Out-of-bag coverage: {oob['coverage']:.1%} of training "
                     f"examples "
                     f"({oob['mean_trees_per_example']:.1f} trees/example)")
+        if verbose:
+            insp = self.inspect()
+            st = insp.stats_summary()
+            lines.append(
+                f"Tree depths: min={st['depth_min']} "
+                f"mean={st['depth_mean']:.1f} max={st['depth_max']}; "
+                f"leaves/tree mean={st['leaves_mean']:.1f} "
+                f"(total {st['leaves_total']})")
+            max_depth = 4 if verbose is True else int(verbose)
+            lines.append(f"Tree #0 (first {max_depth} levels):")
+            lines.append(insp.plot_tree(0, max_depth=max_depth))
         return "\n".join(lines)
 
     def variable_importances(self) -> dict[str, dict[str, float]]:

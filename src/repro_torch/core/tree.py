@@ -77,6 +77,18 @@ class Forest:
         return bool(self.obl_weights is not None and self.obl_weights.shape[-1]
                     and (self.feature == -2).any())
 
+    def to_trees(self, *, value_kind: str | None = None) -> list:
+        """The SoA as typed ``py_tree.Tree`` nodes (inspect/edit format)."""
+        from repro_torch.core.py_tree import forest_to_trees
+        return forest_to_trees(self, value_kind=value_kind)
+
+    @staticmethod
+    def from_trees(trees: list, **kw) -> "Forest":
+        """Typed trees -> SoA; ``from_trees(f.to_trees(), like=f)`` is
+        bit-identical for compact forests. See py_tree.forest_from_trees."""
+        from repro_torch.core.py_tree import forest_from_trees
+        return forest_from_trees(trees, **kw)
+
     def truncated(self, n_trees: int) -> "Forest":
         sl = lambda a: None if a is None else a[:n_trees]
         return dataclasses.replace(

@@ -1,16 +1,28 @@
-"""Phase aggregates of a trace, the part of ``repro.obs.export`` that
-``training_logs["profile"]`` needs: ``phase_summary`` folds a span tree into
-per-phase aggregates (count / total / mean / max seconds, self-time
-excluding children), and ``profile_dict`` is the versioned wrapper.
+"""Trace exporters, the port's copy of ``repro.obs.export``: Chrome
+trace-event JSON and phase aggregates.
+
+``chrome_trace`` emits the Trace Event Format that ``chrome://tracing`` and
+Perfetto read: a dict with a ``traceEvents`` list of complete ("X") events
+(microsecond ``ts``/``dur``, ``pid``/``tid`` lanes, span args), instant
+("i") events such as checkpoint rollbacks, and thread-name ("M") rows.
+``validate_chrome_trace`` checks that structure (the CLI's ``profile``
+verb and the tests use it).
+
+``phase_summary`` folds a span tree into per-phase aggregates (count /
+total / mean / max seconds, self-time excluding children), and
+``profile_dict`` is the versioned wrapper that lands in
+``training_logs["profile"]``.
 """
 from __future__ import annotations
 
+import json
 import numbers
 from typing import Any, Dict, Iterable, List, Optional, Union
 
 from .trace import Span, Tracer
 
-__all__ = ["phase_summary", "profile_dict"]
+__all__ = ["chrome_trace", "write_chrome_trace", "phase_summary",
+           "profile_dict", "validate_chrome_trace"]
 
 PROFILE_SCHEMA_VERSION = 1
 
@@ -19,6 +31,68 @@ def _roots(source: Union[Tracer, Iterable[Span]]) -> List[Span]:
     if isinstance(source, Tracer):
         return list(source.roots)
     return list(source)
+
+
+def chrome_trace(source: Union[Tracer, Iterable[Span]],
+                 *, pid: int = 1) -> Dict[str, Any]:
+    """Render a tracer (or span list) as a Chrome trace-event dict."""
+    roots = _roots(source)
+    tids: Dict[str, int] = {}
+
+    def tid_of(name: str) -> int:
+        if name not in tids:
+            tids[name] = len(tids) + 1
+        return tids[name]
+
+    events: List[Dict[str, Any]] = []
+    t_origin = min((r.t0 for r in roots), default=0.0)
+    if isinstance(source, Tracer) and source.events:
+        t_origin = min(t_origin,
+                       min(ev["ts"] for ev in source.events))
+
+    for root in roots:
+        for sp in root.walk():
+            ev: Dict[str, Any] = {
+                "name": sp.name,
+                "cat": sp.name.split("/", 1)[0],
+                "ph": "X",
+                "ts": round((sp.t0 - t_origin) * 1e6, 3),
+                "dur": round(sp.duration * 1e6, 3),
+                "pid": pid,
+                "tid": tid_of(sp.tid),
+            }
+            if sp.args:
+                ev["args"] = {k: _jsonable(v) for k, v in sp.args.items()}
+            events.append(ev)
+
+    if isinstance(source, Tracer):
+        for iev in source.events:
+            ev = {
+                "name": iev["name"],
+                "cat": iev["name"].split("/", 1)[0],
+                "ph": "i",
+                "s": "t",
+                "ts": round((iev["ts"] - t_origin) * 1e6, 3),
+                "pid": pid,
+                "tid": tid_of(iev["tid"]),
+            }
+            if iev.get("args"):
+                ev["args"] = {k: _jsonable(v)
+                              for k, v in iev["args"].items()}
+            events.append(ev)
+
+    # Thread-name metadata rows make the Perfetto lanes readable.
+    for tname, tid in tids.items():
+        events.append({"name": "thread_name", "ph": "M", "pid": pid,
+                       "tid": tid, "args": {"name": tname}})
+
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def write_chrome_trace(path: str,
+                       source: Union[Tracer, Iterable[Span]]) -> None:
+    with open(path, "w") as f:
+        json.dump(chrome_trace(source), f)
 
 
 def phase_summary(source: Union[Tracer, Iterable[Span]]) -> Dict[str, Any]:
@@ -59,6 +133,26 @@ def profile_dict(tracer: Tracer,
                     for k, v in ev.items()} for ev in events],
         "events_truncated": truncated,
     }
+
+
+def validate_chrome_trace(doc: Any) -> None:
+    """Raise ValueError unless *doc* is a structurally valid Chrome
+    trace-event document (used by the tests and the CLI's ``profile`` verb)."""
+    if not isinstance(doc, dict) or "traceEvents" not in doc:
+        raise ValueError("chrome trace: missing traceEvents")
+    for ev in doc["traceEvents"]:
+        if not isinstance(ev, dict) or "ph" not in ev or "name" not in ev:
+            raise ValueError(f"chrome trace: malformed event {ev!r}")
+        if ev["ph"] == "X":
+            for k in ("ts", "dur", "pid", "tid"):
+                if k not in ev:
+                    raise ValueError(
+                        f"chrome trace: X event missing {k}: {ev!r}")
+            if ev["dur"] < 0 or ev["ts"] < 0:
+                raise ValueError(f"chrome trace: negative time: {ev!r}")
+        elif ev["ph"] == "i":
+            if "ts" not in ev:
+                raise ValueError(f"chrome trace: i event missing ts: {ev!r}")
 
 
 def _jsonable(v: Any) -> Any:
