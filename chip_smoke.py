@@ -20,7 +20,9 @@ traversal kernels; and train the tasks (LambdaMART ranking through both
 histogram kernels, uplift trees, an isolation forest) and serve them; serve
 through the depth-bucketed engines and the asyncio front end; inspect, edit,
 build and analyze models, run the meta-learners and drive the command line
-(ROADMAP A6).
+(ROADMAP A6); train boosted trees over torch.distributed meshes and the
+simulation backend with worker faults, and the linear baseline (ROADMAP
+A7, A8).
 The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
@@ -293,6 +295,36 @@ JSON line each:
                      together; every verb exits 0, the predict CSVs are
                      byte-identical, the Chrome traces validate.
 
+ 32. train_distributed — ``DistributedGBT`` (ROADMAP A7) at the reference's
+                     ``DistGBTConfig()`` (depth 5, 64 bins, 20 trees) on
+                     synth_higgs_like's first A7_ROWS rows, binned by
+                     ``bin_features(max_bins=64)``: a world of 1 with NCCL
+                     on the card (B3 counted just before and after: D + 1 =
+                     6 launches a tree), held to the CPU's world of 1
+                     (feature and bin equal, gains within GAIN_RTOL, or the
+                     agreement printed and >= A7_AGREEMENT); one world of
+                     four gloo ranks sharing the card fits (2, 2), (1, 4),
+                     (4, 1), a (2, 2) run stopped after A7_STOP_AT trees and
+                     its resume on (4, 1): every rank's B3 launches 6 a
+                     tree, every mesh within 1e-4 of the world of 1; the
+                     forest through B2 equal to ``predict_naive`` and to
+                     ``predict_scores`` within 1e-4. Seconds per tree per
+                     mesh, bytes per collective per level. Then
+                     ``train_distributed_profile``: a traced A7_PROFILE_TREES
+                     fit of the world of 1 (tree spans, the card's busy
+                     time) and the gain scan timed alone at each level.
+ 33. simulated_cluster — ``SimulatedCluster`` of A7_WORKERS workers on the
+                     same data and config: a faulted run (A7_DEATHS, death
+                     rate 0.02) bit for bit equal to the clean run on the
+                     card, the clean run ``equal_but_gain`` to the CPU's,
+                     B3 launches equal to the histograms the workers built;
+                     traffic_bytes.
+ 34. train_linear  — LINEAR (ROADMAP A8) at its defaults on the GBT's
+                     training rows among the first A7_ROWS: the card
+                     against the CPU within LINEAR_ATOL, evaluated on the
+                     GBT's validation rows beside its accuracy, saved and
+                     loaded.
+
 train_uplift also trains the numerical-outcome case (``numerical_uplift``)
 and holds it to the CPU with ``equal_but_gain``. After the timings phase,
 ``timings_bucketed`` times the bucketed engines (auto, scan and leaf_path
@@ -308,14 +340,16 @@ The timings phase also times B2 and B4 on the rank1 forests at 10,000 rows
 operations per oblique node), and the kernels line carries those numbers
 under each traversal kernel's "oblique" key, and on the isolation forest
 at 104,000 rows under its "isolation" key; B1 and B3 carry the task phases'
-launches under "task_launches", and B2, B3 and B4 the A6 phases' under
-"a6_launches". Then the kernels line (``{"kernels": [...]}``), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Any failed check raises
+launches under "task_launches", B2, B3 and B4 the A6 phases' under
+"a6_launches", and B2 and B3 the A7 phases' under "a7_launches". Then the
+kernels line (``{"kernels": [...]}``), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits 1 at once.
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import platform
@@ -449,6 +483,24 @@ ANALYZE_REPS, OOB_REPS = 3, 1
 META_ROWS, META_GBT_TREES, META_RF_TREES, META_RF_DEPTH = 20_000, 20, 8, 8
 SELECT_COLUMNS = 6
 CLI_BENCH_ROWS, CLI_TIMEOUT_S = 256, 300
+# ROADMAP A7 and A8 (phases 32-34): synth_higgs_like's first A7_ROWS rows,
+# a multiple of 128 (32 rows a partition word x 4 data ranks; the largest
+# multiple of 256 in 100,000), its 28 columns binned to A7_BINS bins by the port's bin_features, at the
+# reference's DistGBTConfig() widths (depth 5, 64 bins, 20 trees). The gloo
+# meshes of A7_MESHES are four ranks sharing the card; a (2, 2) run stopped
+# after A7_STOP_AT trees (checkpoints every A7_CKPT_EVERY) resumes on
+# (4, 1). The simulation backend runs A7_WORKERS workers, faulted by
+# A7_DEATHS and a 2% death rate. A7_AGREEMENT: the card-against-CPU floor
+# where a field differs; LINEAR_ATOL: the linear model's card against the
+# CPU (W, b and probabilities)
+A7_ROWS, A7_BINS = 99_840, 64
+A7_MESHES = ((2, 2), (1, 4), (4, 1))
+A7_STOP_AT, A7_CKPT_EVERY = 8, 4
+A7_WORKERS = 8
+A7_PROFILE_TREES = 6
+A7_DEATHS = ((1, 1, 0), (4, 2, 3))
+A7_AGREEMENT = 0.995
+LINEAR_ATOL = 1e-4
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -3589,6 +3641,329 @@ def time_buckets(forest, sizes, device) -> dict:
     return out
 
 
+# --------------------------------------------- ROADMAP A7, A8: phases 32-34
+
+def a7_data(data: dict, n: int = A7_ROWS) -> tuple:
+    """The first ``n`` rows of ``data`` (synth_higgs_like): the 28
+    numerical columns binned by the port's ``bin_features(max_bins=A7_BINS)``
+    (uint8 codes) and the 0/1 label."""
+    from repro_torch.core.binning import bin_features
+    from repro_torch.core.dataspec import dataset_from_raw
+    rows = {k: v[:n] for k, v in data.items()}
+    feats = [f"num_{j}" for j in range(HIGGS["n_num"])]
+    codes = bin_features(dataset_from_raw(rows), feats,
+                         max_bins=A7_BINS).codes
+    return codes, (rows["label"] == "c1").astype(np.float64)
+
+
+def _a7_config(num_trees):
+    from repro_torch.core.distributed import DistGBTConfig
+    return DistGBTConfig() if num_trees is None \
+        else DistGBTConfig(num_trees=num_trees)
+
+
+def _on_card(device) -> bool:
+    import torch
+    return torch.device(device).type == "cuda"
+
+
+def collective_bytes(cfg, N: int, F: int, data: int,
+                     model: int, level: int) -> dict:
+    """Bytes each rank sends into each collective at one tree level, from
+    the shapes: the histogram summed over "data", the (gain, feature, bin)
+    candidates gathered over "model", and the packed partition words summed
+    over "model" (the leaf level sums a (2^D, 1, 1, 3) histogram only)."""
+    nodes, F_l = 2 ** level, F // model
+    if level == cfg.max_depth:
+        return {"hist_all_reduce": nodes * 3 * 4}
+    return {"hist_all_reduce": nodes * F_l * cfg.n_bins * 3 * 4,
+            "candidates_all_gather": nodes * 4 * 3,
+            "partition_all_reduce": N // data // 32 * 4}
+
+
+def distributed_card_vs_cpu(card, cpu, codes) -> dict:
+    """The card's world of 1 against the CPU's: feature and bin equal and
+    every gain within GAIN_RTOL (B3 rounds an exact sum of the float32
+    gradients, its plain version a float64 sum); where feature or bin
+    differs, the measured share of equal entries, each >= A7_AGREEMENT."""
+    agree = {k: float(np.mean(np.concatenate(
+        [a[k] == b[k] for a, b in zip(card.trees, cpu.trees)])))
+        for k in ("feat", "bin", "gain", "leaf")}
+    ga = np.concatenate([t["gain"] for t in card.trees]).astype(np.float64)
+    gb = np.concatenate([t["gain"] for t in cpu.trees]).astype(np.float64)
+    live = np.isfinite(gb) & (gb != 0)
+    rel = float((np.abs(ga[live] - gb[live]) / np.abs(gb[live])).max()) \
+        if live.any() else 0.0
+    equal = (agree["feat"] == agree["bin"] == 1.0
+             and np.array_equal(np.isfinite(ga), np.isfinite(gb))
+             and rel <= GAIN_RTOL)
+    if not equal and min(agree["feat"], agree["bin"]) < A7_AGREEMENT:
+        raise AssertionError(f"card vs CPU world of 1: agreement {agree}, "
+                             f"gain max relative diff {rel}")
+    return {"feat_bin_equal_gain_within_rtol": equal, "agreement": agree,
+            "gain_max_rel_diff": rel,
+            "score_max_abs_diff": float(np.abs(
+                card.predict_scores(codes) - cpu.predict_scores(codes)).max())}
+
+
+def train_distributed(device, codes, y, scratch: str,
+                      num_trees: int | None = None,
+                      stop_at: int = A7_STOP_AT) -> dict:
+    """Phase 32. ``DistributedGBT`` at the reference's widths: a world of 1
+    on ``device`` (NCCL on the card; B3 counted: D + 1 launches a tree),
+    the same on the CPU (``distributed_card_vs_cpu``), then one world of
+    four gloo ranks sharing the card that fits each mesh of A7_MESHES, a
+    (2, 2) run stopped after ``stop_at`` trees and its resume on (4, 1):
+    every rank's B3 launches D + 1 a tree it grew, every mesh's scores
+    within 1e-4 of the world of 1's, the resumed forest's too. The world of
+    1's forest served through B2 equals ``predict_naive`` bit for bit and
+    ``predict_scores`` within 1e-4."""
+    from repro_torch.core.distributed import CancelAfter, fit_on_world
+    from repro_torch.core.tree import aggregate_gbt, predict_naive
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.obs import clock
+    from repro_torch.train.checkpoint import CheckpointPolicy
+    cfg = _a7_config(num_trees)
+    N, F = codes.shape
+    per_tree = (cfg.max_depth + 1) * _on_card(device)   # 0: plain version
+    histogram.LAUNCHES = 0               # the world of 1 starts here
+    t0 = clock.perf()
+    (card,) = fit_on_world(cfg, codes, y, [(1, 1)], device=device)
+    card_s = clock.perf() - t0
+    card_launches = histogram.LAUNCHES   # ... and ends here
+    if card_launches != per_tree * cfg.num_trees \
+            or card.training_logs["histogram_launches"] != [card_launches]:
+        raise AssertionError(f"the world of 1 grew {cfg.num_trees} trees "
+                             f"with {card_launches} B3 launches")
+    t0 = clock.perf()
+    (cpu,) = fit_on_world(cfg, codes, y, [(1, 1)], device="cpu")
+    cpu_s = clock.perf() - t0
+    scores = card.predict_scores(codes)
+    shapes = [*A7_MESHES, (2, 2), (4, 1)]
+    ckdir = os.path.join(scratch, "distributed")
+    t0 = clock.perf()
+    runs = fit_on_world(cfg, codes, y, shapes, device=device, checkpoints=[
+        *[None] * len(A7_MESHES),
+        CheckpointPolicy(ckdir, every_n_trees=A7_CKPT_EVERY,
+                         cancel=CancelAfter(stop_at)),
+        CheckpointPolicy(ckdir)])
+    world_s = clock.perf() - t0
+    meshes = {}
+    for i, (shape, m) in enumerate(zip(shapes, runs)):
+        logs = m.training_logs
+        stopped, resumed = i == len(shapes) - 2, i == len(shapes) - 1
+        grown = len(m.trees) - (stop_at if resumed else 0)
+        name = "x".join(map(str, shape)) + (" stopped" if stopped else
+                                            " resumed" if resumed else "")
+        if logs["interrupted"] != stopped or len(m.trees) != (
+                stop_at if stopped else cfg.num_trees):
+            raise AssertionError(f"{name}: {len(m.trees)} trees, "
+                                 f"interrupted={logs['interrupted']}")
+        if logs["histogram_launches"] != [per_tree * grown] * 4:
+            raise AssertionError(f"{name}: B3 launches per rank "
+                                 f"{logs['histogram_launches']} for {grown} "
+                                 "trees")
+        diff = float(np.abs(m.predict_scores(codes) - scores).max())
+        if not stopped and not diff <= 1e-4:
+            raise AssertionError(f"{name}: scores {diff} from the world of 1")
+        meshes[name] = {"trees_grown": grown,
+                        "seconds_per_tree": logs["fit_seconds"] / grown,
+                        "b3_launches_per_rank": logs["histogram_launches"],
+                        "score_max_abs_diff": diff}
+    forest = card.to_forest([f"num_{j}" for j in range(F)])
+    X = codes.astype(np.float32)
+    forest_infer.LAUNCHES = 0            # serving the forest starts here
+    per = ops.forest_predict(forest, X, "cuda" if _on_card(device) else "ref",
+                             device).cpu().numpy()
+    b2_launches = forest_infer.LAUNCHES  # ... and ends here
+    if b2_launches != int(_on_card(device)):
+        raise AssertionError(f"one forest_predict made {b2_launches} B2 "
+                             "launches")
+    if not np.array_equal(per[:NAIVE_ROWS], predict_naive(forest,
+                                                          X[:NAIVE_ROWS])):
+        raise AssertionError("B2 on the distributed forest != predict_naive")
+    served = aggregate_gbt(per, forest)[:, 0]
+    served_diff = float(np.abs(served - scores).max())
+    if not served_diff <= 1e-4:
+        raise AssertionError(f"B2 scores {served_diff} from predict_scores")
+    return {
+        "rows": N, "columns": F, "config": dataclasses.asdict(cfg),
+        "backend_world_1": "nccl" if _on_card(device) else "gloo",
+        # fit_on_world's seconds include starting the world; a fit's
+        # seconds a tree are its own, as the meshes' are
+        "world_1_s": card_s,
+        "world_1_fit_s_per_tree": card.training_logs["fit_seconds"]
+        / cfg.num_trees,
+        "b3_launches": card_launches, "cpu_world_1_s": cpu_s,
+        "cpu_world_1_fit_s_per_tree": cpu.training_logs["fit_seconds"]
+        / cfg.num_trees,
+        "card_vs_cpu": distributed_card_vs_cpu(card, cpu, codes),
+        "gloo_world_s": world_s, "meshes": meshes,
+        "collective_bytes_per_level": {
+            f"{d}x{m}": [collective_bytes(cfg, N, F, d, m, lv)
+                         for lv in range(cfg.max_depth + 1)]
+            for d, m in ((1, 1), *A7_MESHES)},
+        "accuracy": float(((scores > 0) == y).mean()),
+        "b2_launches": b2_launches, "b2_vs_predict_scores": served_diff}
+
+
+def distributed_profile(device, codes, y,
+                         n_trees: int = A7_PROFILE_TREES) -> dict:
+    """Where a tree's time goes in the world of 1 on ``device`` (NCCL on the
+    card): a traced ``n_trees`` fit, its ``distributed/tree`` spans (the
+    first apart: it holds the process groups' first collectives) and the
+    card's busy time over the fit (torch.profiler: every kernel, copy and
+    memset); then the fixed-order gain scan alone, ``best_split_gh`` at
+    each level's histogram shape: host ms a synchronized call (median of 5)
+    and the device operations one call makes."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.distributed import best_split_gh, fit_on_world
+    from repro_torch.obs import clock, trace
+    cfg = _a7_config(n_trees)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace.capture() as tracer:
+            (gbt,) = fit_on_world(cfg, codes, y, [(1, 1)], device=device)
+        torch.cuda.synchronize()
+    trees = [sp.duration for sp in tracer.find("distributed/tree")]
+    busy_s = sum(getattr(ev, "device_time_total", 0.0)
+                 for ev in prof.key_averages()) / 1e6
+    rng = np.random.default_rng(0)
+    scan = []
+    for d in range(cfg.max_depth):
+        hist = torch.from_numpy(rng.random(
+            (2 ** d, codes.shape[1], cfg.n_bins, 3),
+            dtype=np.float32)).to(device)
+        best_split_gh(hist, cfg.min_examples, cfg.l2)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = clock.perf()
+            best_split_gh(hist, cfg.min_examples, cfg.l2)
+            torch.cuda.synchronize()
+            times.append(clock.perf() - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as one:
+            best_split_gh(hist, cfg.min_examples, cfg.l2)
+            torch.cuda.synchronize()
+        scan.append({"nodes": 2 ** d, "ms": 1e3 * statistics.median(times),
+                     "device_ops": sum(ev.count for ev in one.key_averages())})
+    later_ms = 1e3 * statistics.median(trees[1:])
+    scan_ms = sum(s["ms"] for s in scan)
+    return {"trees": n_trees, "fit_s": gbt.training_logs["fit_seconds"],
+            "tree_span_ms": [1e3 * t for t in trees],
+            "first_tree_ms": 1e3 * trees[0], "later_tree_ms_median": later_ms,
+            "outside_tree_spans_s": gbt.training_logs["fit_seconds"]
+            - sum(trees),
+            "device_busy_ms": 1e3 * busy_s,
+            "device_idle_share_of_tree_spans": 1.0 - busy_s / sum(trees),
+            "gain_scan": scan, "gain_scan_ms_per_tree": scan_ms,
+            "gain_scan_share_of_later_trees": scan_ms / later_ms}
+
+
+def simulated_cluster(device, codes, y, num_trees: int | None = None) -> dict:
+    """Phase 33. ``SimulatedCluster`` with A7_WORKERS workers on the same
+    data and config: a clean run and a faulted one (A7_DEATHS and a 2%
+    death rate: >= 2 deaths and a level restart) on ``device``, bit for
+    bit equal; the same clean run on the CPU (numpy histograms of float64
+    stats) ``equal_but_gain``; each run's B3 launches (counts reset just
+    before, read just after) equal to the histograms its workers built,
+    lost level passes included."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.distributed import SimulatedCluster, WorkerFaultPlan
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.obs import clock
+    cfg = _a7_config(num_trees)
+    plan = WorkerFaultPlan(seed=5, deaths=A7_DEATHS, death_rate=0.02)
+    runs = {}
+    for name, fault_plan, dev in (("clean", None, device),
+                                  ("faulted", plan, device),
+                                  ("cpu", None, "cpu")):
+        histogram.LAUNCHES = 0           # this run starts here
+        t0 = clock.perf()
+        sim = SimulatedCluster(codes, A7_WORKERS, cfg, seed=0,
+                               fault_plan=fault_plan, device=dev).fit(y)
+        seconds = clock.perf() - t0
+        launches = histogram.LAUNCHES    # ... and ends here
+        if launches != sim.hist_builds * _on_card(dev):
+            raise AssertionError(f"{name}: {sim.hist_builds} histograms, "
+                                 f"{launches} B3 launches")
+        runs[name] = (sim, {"seconds": seconds, "b3_launches": launches,
+                            "hist_builds": sim.hist_builds,
+                            "traffic_bytes": sim.traffic_bytes})
+    clean, faulted, cpu = (runs[k][0] for k in ("clean", "faulted", "cpu"))
+    log = faulted.training_logs["resilience"]
+    deaths = [e["worker"] for e in log if e["event"] == "worker_death"]
+    restarts = sum(e["event"] == "level_restart" for e in log)
+    if len(deaths) < 2 or not restarts:
+        raise AssertionError(f"the fault plan gave deaths {deaths}")
+    if not (len(clean.trees) == len(faulted.trees) == cfg.num_trees and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(clean.trees,
+                                                       faulted.trees)
+            for k in a)) or clean.predict_scores(codes).tobytes() != \
+            faulted.predict_scores(codes).tobytes():
+        raise AssertionError("the faulted run's forest != the clean run's")
+    names = [f"num_{j}" for j in range(codes.shape[1])]
+    return {"workers": A7_WORKERS, "rows": codes.shape[0],
+            **{k: v[1] for k, v in runs.items()},
+            "deaths": deaths, "level_restarts": restarts,
+            "faulted_equals_clean": True,
+            "card_vs_cpu": equal_but_gain(
+                SimpleNamespace(forest=clean.to_forest(names)),
+                SimpleNamespace(forest=cpu.to_forest(names)))}
+
+
+def train_linear(device, data: dict, scratch: str,
+                 gbt_accuracy: float | None, n: int = A7_ROWS) -> dict:
+    """Phase 34. LINEAR at its default hyper-parameters on the rows of the
+    first ``n`` that the default GBT trained on (its 10% validation rows
+    held out), on ``device`` and on the CPU: W, b and the validation rows'
+    probabilities within LINEAR_ATOL, the same class wherever the CPU's
+    margin exceeds it; evaluated on the validation rows beside the default
+    GBT's self-evaluation there; saved and loaded, predicting the same
+    bits. X @ W runs in float32: TF32 must be off."""
+    import torch
+    from repro_torch.core import LinearLearner, Model
+    from repro_torch.core.models import extract_validation
+    from repro_torch.obs import clock
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are allowed; LINEAR trains in "
+                             "float32")
+    _, valid_idx = extract_validation(len(data["label"]), 0.1, LEARNER_SEED)
+    train_idx = np.setdiff1d(np.arange(n), valid_idx)
+    train = {k: v[train_idx] for k, v in data.items()}
+    valid = {k: v[valid_idx] for k, v in data.items()}
+    fits = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        t0 = clock.perf()
+        fits[name] = LinearLearner(label="label", device=dev).train(train)
+        fits[name + "_s"] = clock.perf() - t0
+    card, cpu = fits["card"], fits["cpu"]
+    p_card = card.predict(valid, device=device)
+    p_cpu = cpu.predict(valid, device="cpu")
+    diffs = {"W": float(np.abs(card.W - cpu.W).max()),
+             "b": float(np.abs(card.b - cpu.b).max()),
+             "probabilities": float(np.abs(p_card - p_cpu).max())}
+    clear = np.abs(p_cpu[:, 1] - p_cpu[:, 0]) > LINEAR_ATOL
+    if max(diffs.values()) > LINEAR_ATOL or not np.array_equal(
+            p_card.argmax(1)[clear], p_cpu.argmax(1)[clear]):
+        raise AssertionError(f"LINEAR card vs CPU: max abs diffs {diffs}")
+    ev = card.evaluate(valid, device=device)
+    path = os.path.join(scratch, "linear")
+    card.save(path)
+    if not np.array_equal(Model.load(path).predict(valid, device=device),
+                          p_card):
+        raise AssertionError("the loaded linear model predicts other bits")
+    return {"train_rows": len(train_idx), "valid_rows": len(valid_idx),
+            "design_columns": card.W.shape[0], "card_s": fits["card_s"],
+            "cpu_s": fits["cpu_s"], "card_vs_cpu_max_abs": diffs,
+            "accuracy": ev["accuracy"], "default_gbt_accuracy": gbt_accuracy,
+            "saved_bytes": dir_bytes(path)}
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -3848,6 +4223,37 @@ def main() -> int:
                 "analyze_oob": analyzed["rf_oob"]["launches"],
                 "metalearners": meta["b2_launches"]}
 
+    # distributed training, the simulation backend and the linear baseline
+    # (ROADMAP A7, A8); each phase resets the counts it reads
+    codes_a7, y_a7 = a7_data(data)
+    scratch = scratch_dir()
+    try:
+        t0 = clock.perf()
+        dist_run = train_distributed(device, codes_a7, y_a7, scratch)
+        emit(phase="train_distributed", card=card, **dist_run,
+             seconds=clock.perf() - t0)
+        t0 = clock.perf()
+        emit(phase="train_distributed_profile", card=card,
+             **distributed_profile(device, codes_a7, y_a7),
+             seconds=clock.perf() - t0)
+        t0 = clock.perf()
+        sim_run = simulated_cluster(device, codes_a7, y_a7)
+        emit(phase="simulated_cluster", card=card, **sim_run,
+             seconds=clock.perf() - t0)
+        t0 = clock.perf()
+        linear_run = train_linear(device, data, scratch,
+                                  batched.self_evaluation["accuracy"])
+        emit(phase="train_linear", card=card, **linear_run,
+             seconds=clock.perf() - t0)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    a7_hist = {"train_distributed": {
+        "1x1": dist_run["b3_launches"],
+        **{k: v["b3_launches_per_rank"]
+           for k, v in dist_run["meshes"].items()}},
+        "simulated_cluster": {k: sim_run[k]["b3_launches"]
+                              for k in ("clean", "faulted")}}
+
     # the single-tree kernel's path: forest_predict(impl="single") on the
     # trained forest and on the default GBT
     X_gbt = encoded_inputs(MAIN_N, seed=12)
@@ -3973,6 +4379,7 @@ def main() -> int:
                           "serve_bucketed": bucketed_launches,
                           "serve_async": async_launches},
         "a6_launches": a6_tiled,
+        "a7_launches": {"train_distributed": dist_run["b2_launches"]},
     }, {
         "name": "fused_split",
         "route": "cuda",
@@ -4003,6 +4410,7 @@ def main() -> int:
         "rank1_launches": {k: v["launches"] for k, v in rank1_run.items()},
         "task_launches": task_hist,
         "a6_launches": {"metalearners": meta["b3_launches"]},
+        "a7_launches": a7_hist,
     }, {
         "name": "forest_single",
         "route": "cuda",

@@ -1,4 +1,4 @@
-"""Carry a decision-forest model across from the JAX package as plain data.
+"""Carry a model across from the JAX package as plain data.
 
 The port never sees a ``repro`` object and never unpickles ``model.pkl``
 (that needs ``repro``'s classes). A model crosses as:
@@ -14,7 +14,9 @@ The port never sees a ``repro`` object and never unpickles ``model.pkl``
     same as ``dataspec.json`` in a saved model directory);
   * the feature list, task, classes and, for a GBT, the loss name
     (``LAMBDA_MART_NDCG`` for a ranking GBT); for an uplift forest the
-    treatment column's name, for an isolation forest ``c_psi``.
+    treatment column's name, for an isolation forest ``c_psi``;
+  * a linear model (``core/baselines.py``) crosses as its ``W`` and ``b``
+    with the same dataspec, features, task and classes.
 
 ``binned_from_arrays`` carries a binned dataset (``BinnedFeatures``) across
 the same way, so both packages can grow trees from the same codes.
@@ -24,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.api import Task, YdfError
+from repro_torch.core.baselines import LinearModel
 from repro_torch.core.binning import BinnedFeatures
 from repro_torch.core.dataspec import spec_from_dict
 from repro_torch.core.losses import loss_by_name
@@ -119,10 +122,13 @@ def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
                       loss: str | None = None,
                       winner_take_all: bool = True,
                       treatment_col: str = "treatment",
-                      c_psi: float | None = None) -> DecisionForestModel:
+                      c_psi: float | None = None
+                      ) -> DecisionForestModel | LinearModel:
     """The port's model for a reference model's data.
 
-    kind: "gbt", "rf", "cart", "uplift" or "isolation". task: a ``Task``
+    kind: "gbt", "rf", "cart", "uplift", "isolation" or "linear" (whose
+    ``forest_arrays`` are the linear model's ``{"W", "b"}``: W (D, K) over
+    the design matrix of ``core/baselines.py``, b (K,)). task: a ``Task``
     (either package's) or its name. A CART model serves as the reference's
     does: the mean of its one tree, without winner-take-all.
     For a GBT, ``loss`` is the reference loss's ``name`` (``BINOMIAL_LOG_LIKELIHOOD``,
@@ -139,6 +145,8 @@ def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
     if absent:
         raise YdfError(f"Feature(s) {absent} are not in the dataspec; its "
                        f"columns are {sorted(ds.columns)}.")
+    if kind == "linear":
+        return _linear_from_arrays(forest_arrays, ds, features, task, classes)
     forest = forest_from_arrays(forest_arrays, features)
     common = dict(forest=forest, spec=ds, features=features, task=task,
                   classes=None if classes is None else list(classes))
@@ -157,7 +165,7 @@ def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
         return IsolationForestModel(c_psi=float(c_psi), **common)
     if kind != "gbt":
         raise YdfError(f"Unknown model kind {kind!r}; expected 'gbt', 'rf', "
-                       "'cart', 'uplift' or 'isolation'.")
+                       "'cart', 'uplift', 'isolation' or 'linear'.")
     if loss is None:
         if task == Task.REGRESSION:
             loss = "SQUARED_ERROR"
@@ -171,6 +179,22 @@ def model_from_arrays(kind: str, forest_arrays: dict, spec: dict,
                            "loss= with the reference model's loss name.")
     return GradientBoostedTreesModel(loss=loss_by_name(loss, forest.out_dim),
                                      **common)
+
+
+def _linear_from_arrays(arrays: dict, spec, features: list[str], task,
+                        classes) -> LinearModel:
+    missing = [k for k in ("W", "b") if k not in arrays]
+    if missing:
+        raise YdfError(f"A linear model's arrays are missing {missing}; "
+                       "expected W (D, K) and b (K,).")
+    W = np.asarray(arrays["W"], np.float32)
+    b = np.asarray(arrays["b"], np.float32)
+    if W.ndim != 2 or b.shape != (W.shape[1],):
+        raise YdfError(f"W must be (D, K) and b (K,), got {W.shape} and "
+                       f"{b.shape}")
+    return LinearModel(W=W, b=b, spec=spec, features=features, label=None,
+                       task=task,
+                       classes=None if classes is None else list(classes))
 
 
 def binned_from_arrays(codes, n_bins, is_cat, boundaries,

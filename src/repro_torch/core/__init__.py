@@ -33,6 +33,11 @@ _LAZY = {
     "Calibrator": "repro_torch.core.metalearners",
     "FeatureSelector": "repro_torch.core.metalearners",
     "cross_validate": "repro_torch.core.metalearners",
+    "LinearLearner": "repro_torch.core.baselines",
+    "DistributedGBT": "repro_torch.core.distributed",
+    "DistGBTConfig": "repro_torch.core.distributed",
+    "SimulatedCluster": "repro_torch.core.distributed",
+    "WorkerFaultPlan": "repro_torch.core.distributed",
 }
 
 

@@ -11,7 +11,8 @@ Learners register by name, as YDF's ``REGISTER_AbstractLearner`` does.
 A saved model is a directory of plain data, written atomically (a temp
 sibling, every file fsync'ed, one rename): ``header.json`` (format tag and
 class), ``dataspec.json``, the model's arrays and fields (for a decision
-forest ``forest.npz`` and ``model.json``, core/models.py), ``summary.txt``
+forest ``forest.npz`` and ``model.json``, core/models.py; for a linear
+model ``linear.npz`` and ``model.json``, core/baselines.py), ``summary.txt``
 and, after ``evaluate``, ``evaluation.txt`` and ``evaluation.json``. The
 port writes and reads no pickle; a directory the JAX package saved (it
 holds ``model.pkl``) is refused, and such a model crosses through
@@ -230,6 +231,9 @@ class Model(abc.ABC):
                 f"Model at {path!r} was saved with format v{meta['format_version']}, "
                 f"this library reads up to v{Model.FORMAT_VERSION}. Solutions: (1) "
                 "upgrade the library, or (2) re-export the model in an older format.")
+        if meta.get("class") == "LinearModel":
+            from repro_torch.core.baselines import load_linear_model
+            return load_linear_model(path)
         from repro_torch.core.models import load_forest_model
         return load_forest_model(path, meta)
 
@@ -328,8 +332,8 @@ class Learner(abc.ABC):
 _LEARNERS: dict[str, type] = {}
 
 # the reference's learners that the port does not train yet, and the
-# ROADMAP item that brings each
-_NOT_PORTED = {"LINEAR": "A8"}
+# ROADMAP item that brings each (none since A8)
+_NOT_PORTED: dict[str, str] = {}
 
 
 def register_learner(name: str) -> Callable[[type], type]:
@@ -386,5 +390,6 @@ def _ensure_builtin() -> None:
     if _BUILTIN:
         return
     _BUILTIN = True
-    from repro_torch.core import cart, gbt, metalearners, rf  # noqa: F401
+    from repro_torch.core import (  # noqa: F401
+        baselines, cart, gbt, metalearners, rf)
     from repro_torch import tasks  # noqa: F401  (uplift trees, isolation forest)

@@ -459,21 +459,21 @@ class CheckpointSession:
                             "restore_s": self.policy.clock() - t0})
         return payload
 
+    def due(self, trees_done: int) -> bool:
+        """Whether a cadence is due: ``every_n_trees`` trees since the last
+        save, OR ``every_seconds`` of wall clock (policy.clock) since the
+        last save. A trainer whose payload is costly to build asks first."""
+        es = self.policy.every_seconds
+        return (trees_done - self.last_saved >= self.policy.every_n_trees
+                or (es is not None
+                    and self.policy.clock() - self._last_save_time >= es))
+
     def save(self, trees_done: int, payload: dict, *, done: bool = False,
              force: bool = False) -> bool:
-        """Checkpoint iff a cadence is due or forced: ``every_n_trees``
-        trees since the last save, OR ``every_seconds`` of wall clock
-        (policy.clock) since the last save. Returns True when a checkpoint
-        was written. Called at tree/block boundaries only, so the wall-clock
-        cadence can never tear a tree."""
-        if trees_done <= 0:
-            return False
-        due_trees = (trees_done - self.last_saved
-                     >= self.policy.every_n_trees)
-        es = self.policy.every_seconds
-        due_time = (es is not None
-                    and self.policy.clock() - self._last_save_time >= es)
-        if not (force or due_trees or due_time):
+        """Checkpoint iff a cadence is ``due`` or forced. Returns True when
+        a checkpoint was written. Called at tree/block boundaries only, so
+        the wall-clock cadence can never tear a tree."""
+        if trees_done <= 0 or not (force or self.due(trees_done)):
             return False
         t0 = self.policy.clock()
         with trace.span("checkpoint/save", trees_done=trees_done, done=done):

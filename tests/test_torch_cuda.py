@@ -34,7 +34,11 @@ the batched engine too, but for ``split_gain``, within
 which the histogram kernel's fixed-point sums round); the device engine's
 LambdaMART repeats its bits and agrees on >= 99.5% of each structure
 field; an isolation forest serves through both traversal kernels bit for
-bit with ``predict_naive``.
+bit with ``predict_naive``. Distributed training (chip_smoke phases 32-34
+at 4,096 rows): the world of 1 and four gloo ranks sharing the card launch
+B3 D + 1 times a tree each and agree with the CPU and within 1e-4; the
+simulation backend's faulted run equals its clean run bit for bit; LINEAR
+on the card within ``chip_smoke.LINEAR_ATOL`` of the CPU's.
 """
 from __future__ import annotations
 
@@ -722,3 +726,44 @@ def test_async_server_and_pickled_predictor_on_the_card(cuda):
     X = chip_smoke.encoded_inputs(500, seed=9)
     np.testing.assert_array_equal(clone.predict_encoded(X),
                                   pred.predict_encoded(X))
+
+
+@pytest.fixture(scope="module")
+def a7_small():
+    import chip_smoke
+    data = chip_smoke.higgs_like(4096)
+    return (data, *chip_smoke.a7_data(data, 4096))
+
+
+def test_distributed_gbt_on_the_card_goes_through_b3(cuda, a7_small,
+                                                     tmp_path):
+    """``chip_smoke.train_distributed`` at 4,096 rows and 3 trees: the
+    world of 1 (NCCL) launches B3 D + 1 = 6 times a tree and agrees with
+    the CPU's; four gloo ranks sharing the card launch it 6 times a tree
+    each and agree within 1e-4; B2 serves the forest as predict_naive."""
+    import chip_smoke
+    _, codes, y = a7_small
+    out = chip_smoke.train_distributed(cuda, codes, y, str(tmp_path),
+                                       num_trees=3, stop_at=2)
+    assert out["backend_world_1"] == "nccl"
+    assert out["b3_launches"] == 3 * 6 and out["b2_launches"] == 1
+    assert out["meshes"]["2x2"]["b3_launches_per_rank"] == [18] * 4
+
+
+def test_simulated_cluster_on_the_card_faulted_equals_clean(cuda, a7_small):
+    """The simulation backend on the card: its faulted run equals its clean
+    run bit for bit, one B3 launch per histogram its workers built."""
+    import chip_smoke
+    _, codes, y = a7_small
+    out = chip_smoke.simulated_cluster(cuda, codes, y, num_trees=5)
+    assert out["faulted_equals_clean"]
+    assert out["clean"]["b3_launches"] == out["clean"]["hist_builds"] > 0
+
+
+def test_linear_on_the_card_equals_the_cpu(cuda, a7_small, tmp_path):
+    """LINEAR trained on the card within LINEAR_ATOL of the CPU's, saved
+    and loaded predicting the same bits."""
+    import chip_smoke
+    data, _, _ = a7_small
+    out = chip_smoke.train_linear(cuda, data, str(tmp_path), None, n=4096)
+    assert max(out["card_vs_cpu_max_abs"].values()) <= chip_smoke.LINEAR_ATOL

@@ -9,7 +9,7 @@ folds, Platt's Newton steps, the greedy elimination) is the same numpy
 code. Tolerance: none. The tuner's trial log and chosen hyper-parameters,
 the selector's kept and removed features, the Platt (a, b), the folds of
 ``kfold_indices`` and the meta-models' predictions equal the reference's.
-Also: the registry resolves all four names and still names A8 for LINEAR;
+Also: the registry resolves all four names and LINEAR (A8, ported);
 the meta-models' ``save`` refuses with directions and writes nothing; a
 meta-learner hands its device to every learner it builds or wraps, and
 without a card raises unless given ``device="cpu"``.
@@ -224,9 +224,9 @@ def test_registry_resolves_the_meta_learners():
                       ("ENSEMBLER", Ensembler), ("CALIBRATOR", Calibrator),
                       ("FEATURE_SELECTOR", FeatureSelector)):
         assert get_learner(name) is cls
-    assert api._NOT_PORTED == {"LINEAR": "A8"}
-    with pytest.raises(YdfError, match=r"not ported yet \(ROADMAP A8\)"):
-        get_learner("LINEAR")
+    # A8 is ported: no reference learner is left unported
+    assert api._NOT_PORTED == {}
+    assert get_learner("LINEAR").__module__ == "repro_torch.core.baselines"
 
 
 def test_meta_models_refuse_to_save_with_directions(adult, tmp_path):

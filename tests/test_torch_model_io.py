@@ -290,18 +290,18 @@ def test_registry_lists_the_ported_learners():
     assert list_learners() == ["CALIBRATOR", "CART", "ENSEMBLER",
                                "FEATURE_SELECTOR", "GRADIENT_BOOSTED_TREES",
                                "HYPERPARAMETER_TUNER", "ISOLATION_FOREST",
-                               "RANDOM_FOREST", "UPLIFT_TREES"]
+                               "LINEAR", "RANDOM_FOREST", "UPLIFT_TREES"]
     assert get_learner("CART") is CartLearner
     with pytest.raises(YdfError, match="Unknown learner"):
         get_learner("NO_SUCH_LEARNER")
 
 
-# The A4 and A6 ids are those of the cases when those learners were not
+# The A4, A6 and A8 ids are those of the cases when those learners were not
 # ported and raised; they now resolve to the port's learners.
 @pytest.mark.parametrize("name,item", [
     pytest.param("UPLIFT_TREES", None, id="UPLIFT_TREES-A4"),
     pytest.param("ISOLATION_FOREST", None, id="ISOLATION_FOREST-A4"),
-    ("LINEAR", "A8"),
+    pytest.param("LINEAR", None, id="LINEAR-A8"),
     pytest.param("HYPERPARAMETER_TUNER", None, id="HYPERPARAMETER_TUNER-A6"),
     pytest.param("ENSEMBLER", None, id="ENSEMBLER-A6"),
     pytest.param("CALIBRATOR", None, id="CALIBRATOR-A6"),

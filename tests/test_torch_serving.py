@@ -281,10 +281,10 @@ def test_convert_refuses_what_the_port_does_not_serve(trained):
     with pytest.raises(YdfError, match="not in the dataspec"):
         convert.model_from_arrays("gbt", arrays, spec, ["no_such_column"],
                                   task="CLASSIFICATION")
-    # uplift and isolation forests cross since the tasks were ported; a
-    # kind the port has no model for is refused
+    # uplift and isolation forests cross since the tasks were ported, and
+    # linear models since A8; a kind the port has no model for is refused
     with pytest.raises(YdfError, match="Unknown model kind"):
-        convert.model_from_arrays("linear", arrays, spec, ref_model.features,
+        convert.model_from_arrays("svm", arrays, spec, ref_model.features,
                                   task="CLASSIFICATION")
 
 
