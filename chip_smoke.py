@@ -22,7 +22,9 @@ through the depth-bucketed engines and the asyncio front end; inspect, edit,
 build and analyze models, run the meta-learners and drive the command line
 (ROADMAP A6); train boosted trees over torch.distributed meshes and the
 simulation backend with worker faults, and the linear baseline (ROADMAP
-A7, A8).
+A7, A8); and serve the LM stack's attention families (ROADMAP A9):
+qwen2-1.5b at full width and depth in bf16 through prefill, decode and
+greedy generation.
 The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
@@ -325,6 +327,28 @@ JSON line each:
                      GBT's validation rows beside its accuracy, saved and
                      loaded.
 
+ 35. lm_parity     — the smoke config of every attention-family arch
+                     (LM_PARITY_ARCHS), float32 with TF32 off: the port on
+                     the card against the port on the CPU on the same
+                     weights and batch (forward's hidden states, prefill
+                     logits and cache, one decode step, greedy tokens over
+                     8 steps), gated on ``full_fan_in`` weights, the
+                     weights as ``init_params`` draws them reported.
+ 36. lm_serve      — qwen2-1.5b at full width and depth (28 layers, ~1.54 B
+                     parameters), random weights from SEED: float32 decode
+                     against forward (LM_DECODE_TOL); bf16 serving of 4
+                     prompts of 2,048 tokens and 32 greedy tokens through
+                     ``greedy_generate`` and the prefill/decode bundles
+                     (prefill s, decode ms a token, tokens/s, peak memory,
+                     one decode step traced, bounds from the shapes); bf16
+                     against float32 prefill logits (LM_BF16_REL); a float8
+                     KV cache against bf16 under the reference's rule.
+ 37. lm_families   — qwen2-moe-a2.7b, paligemma-3b, whisper-large-v3 at full
+                     width cut to 2 layers, bf16: prefill and 8 greedy
+                     tokens, the MoE's dropped share, and the float32
+                     decode-against-forward check. None of B1-B4 launches
+                     in phases 35-37 (their counts do not move).
+
 train_uplift also trains the numerical-outcome case (``numerical_uplift``)
 and holds it to the CPU with ``equal_but_gain``. After the timings phase,
 ``timings_bucketed`` times the bucketed engines (auto, scan and leaf_path
@@ -501,6 +525,38 @@ A7_PROFILE_TREES = 6
 A7_DEATHS = ((1, 1, 0), (4, 2, 3))
 A7_AGREEMENT = 0.995
 LINEAR_ATOL = 1e-4
+
+# ROADMAP A9 (phases 35-37): the LM stack's serving path (PyTorch tensor
+# code: no kernel of B1-B4 launches there). LM_PARITY_ARCHS: every
+# attention-family arch's smoke config, float32, the card against the CPU on
+# the same weights and batch (LM_ATOL on hidden states and logits, caches
+# within LM_CACHE_REL of their largest |entry|, greedy tokens equal over
+# LM_PARITY["steps"]). LM_SERVE: qwen2-1.5b at full width and depth, served
+# in bf16 (B prompts of S tokens, ``gen`` greedy tokens); LM_CHECK: the
+# float32 decode-against-forward check (the reference's LM_DECODE_TOL);
+# LM_FP8: the reference's float8-cache test shape (argmax equal, max |delta|
+# < LM_FP8_MAX). LM_BF16_REL: bf16 against float32 last-token prefill
+# logits, max |delta| over the float32 logits' std. LM_FAMILIES: full
+# width cut to LM_FAMILY_LAYERS layers (whisper: as many encoder layers).
+# The served weights are ``init_params``' with the attention projections
+# rescaled to their full fan-in (``full_fan_in``; PERF.md §6).
+LM_PARITY_ARCHS = ("qwen2-1.5b", "qwen3-8b", "qwen1.5-32b", "command-r-35b",
+                   "qwen2-moe-a2.7b", "grok-1-314b", "paligemma-3b",
+                   "whisper-large-v3")
+LM_PARITY = dict(batch=2, seq=32, steps=8)
+LM_ATOL = 1e-4
+LM_CACHE_REL = 1e-5
+LM_SERVE = dict(arch="qwen2-1.5b", batch=4, prompt=2048, gen=32)
+LM_CHECK = dict(batch=2, prompt=64)
+LM_DECODE_TOL = 2e-3
+LM_FP8 = dict(batch=2, prompt=16)
+LM_FP8_MAX = 0.25
+LM_BF16_REL = 0.25
+LM_FAMILIES = ("qwen2-moe-a2.7b", "paligemma-3b", "whisper-large-v3")
+LM_FAMILY = dict(layers=2, batch=4, prompt=512, gen=8)
+# published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16
+H100_BYTES_PER_S = 3.35e12
+H100_BF16_FLOPS = 989e12
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -3964,6 +4020,545 @@ def train_linear(device, data: dict, scratch: str,
             "saved_bytes": dir_bytes(path)}
 
 
+# ------------------------------------------------------------------ LM stack
+
+def _lm_tree_map(fn, tree):
+    return ({k: _lm_tree_map(fn, v) for k, v in tree.items()}
+            if isinstance(tree, dict) else fn(tree))
+
+
+def _lm_sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _Timer:
+    """Seconds of the work issued inside the block: CUDA events on the
+    card, the host clock (after the work) on the CPU."""
+
+    def __init__(self, device):
+        import torch
+        self.cuda = torch.device(device).type == "cuda"
+        self.seconds = 0.0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.obs import clock
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = clock.perf()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.obs import clock
+        if self.cuda:
+            self.end.record()
+            self.end.synchronize()
+            self.seconds = self.start.elapsed_time(self.end) / 1e3
+        else:
+            self.seconds = clock.perf() - self.t0
+        return False
+
+
+def full_fan_in(params: dict, cfg) -> dict:
+    """Rescales, in place, every attention block's projections of params
+    drawn by ``init_params`` to their full fan-in: wq/wk/wv (d_model, heads,
+    head_dim) to std 1/sqrt(d_model), wo (heads, head_dim, d_model) to
+    1/sqrt(heads * head_dim). The reference's rule takes fan_in =
+    shape[-2] (the head count, and head_dim), which at qwen2-1.5b's widths
+    gives q entries of std sqrt(1536 / 12) ~ 11 and scores of std ~128: the
+    softmax is near argmax, and the random model turns on which key wins
+    (benchmarks/torch_lm_conditioning.py)."""
+    import math
+
+    def rescale(attn):
+        for name in ("wq", "wk", "wv"):
+            w = attn[name]
+            w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
+        wo = attn["wo"]
+        wo.mul_(1.0 / math.sqrt(wo.shape[-3]))
+
+    for key in ("layers", "enc_layers", "dec_layers"):
+        for name in ("attn", "self_attn", "cross_attn"):
+            if name in params.get(key, {}):
+                rescale(params[key][name])
+    return params
+
+
+def lm_weights(cfg, device, seed: int = SEED, *, fan_in: bool = True) -> dict:
+    """float32 weights of ``cfg`` drawn by ``init_params`` on ``device``
+    from ``seed`` (with ``full_fan_in`` unless ``fan_in`` is False)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_params
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(lm.model_schema(cfg), "float32", generator=gen,
+                         device=device)
+    return full_fan_in(params, cfg) if fan_in else params
+
+
+def lm_cast(params: dict, cfg) -> dict:
+    """params cast to each spec's dtype under ``cfg.param_dtype``."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import torch_dtype
+    return _lm_tree_map2(lambda p, s: p.to(torch_dtype(s.dtype or cfg.param_dtype)),
+                         params, lm.model_schema(cfg))
+
+
+def _lm_tree_map2(fn, tree, schema):
+    if isinstance(tree, dict):
+        return {k: _lm_tree_map2(fn, v, schema[k]) for k, v in tree.items()}
+    return fn(tree, schema)
+
+
+def lm_batch(cfg, batch: int, seq: int, device, seed: int = SEED + 1) -> dict:
+    """``batch`` prompts of ``seq`` tokens (a vlm's patches come on top)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    gen = torch.Generator(device=device).manual_seed(seed)
+    seq += cfg.n_patches if cfg.family == "vlm" else 0
+    return lm.make_batch(gen, cfg, ShapeConfig("serve", "prefill", seq, batch),
+                         device=device)
+
+
+def lm_grow(cfg, cache: dict, extra: int, device) -> dict:
+    """The prefill cache in a zeroed decode cache ``extra`` slots longer."""
+    from repro_torch.models import lm
+    from repro_torch.serving.decode import _embed_cache
+    B, S = cache["k"].shape[1], cache["k"].shape[2]
+    full = lm.init_cache(cfg, B, S + extra, device=device)
+    return {k: _embed_cache(full[k], cache[k]) for k in full}
+
+
+def lm_run(params, batch, cfg, device, steps: int) -> dict:
+    """forward's hidden states, prefill's logits and cache, one decode
+    step's logits and cache, and ``steps`` greedy tokens."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving.decode import greedy_generate
+    ctx = Ctx(cfg, torch.device(device))
+    with torch.inference_mode():
+        h, _, aux = lm.forward(params, batch, ctx)
+        logits, cache = lm.prefill(params, batch, ctx)
+        cache = lm_grow(cfg, cache, steps, device)
+        nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        step, cache = lm.decode_step(params, {"token": nxt}, cache, ctx)
+    tokens = greedy_generate(params, batch, cfg, steps, device=device)
+    out = {"h": h, "aux": aux, "logits": logits, "decode": step,
+           "tokens": tokens, **{f"cache_{k}": v for k, v in cache.items()}}
+    return {k: v.float().cpu() if v.is_floating_point() else v.cpu()
+            for k, v in out.items()}
+
+
+def lm_parity(device, archs=LM_PARITY_ARCHS, batch: int = LM_PARITY["batch"],
+              seq: int = LM_PARITY["seq"], steps: int = LM_PARITY["steps"]) -> dict:
+    """Phase 35. Each arch's smoke config in float32 (TF32 off): the port on
+    ``device`` against the port on the CPU, on the same weights and batch
+    (drawn on the CPU, copied over): forward's h, the prefill logits and
+    cache, one decode step's logits and cache within LM_ATOL (caches
+    LM_CACHE_REL of their largest |entry|), greedy tokens equal over
+    ``steps``. Gated on the ``full_fan_in`` weights; the weights as
+    ``init_params`` draws them (scores of std ~16 at the smoke widths: a
+    sharp softmax that magnifies float32 rounding) are compared and
+    reported beside them."""
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_params
+    from repro_torch.obs import clock
+
+    def compare(cfg, params, cpu_batch):
+        cpu = lm_run(params, cpu_batch, cfg, "cpu", steps)
+        card = lm_run(_lm_tree_map(lambda t: t.to(device), params),
+                      {k: v.to(device) for k, v in cpu_batch.items()}, cfg,
+                      device, steps)
+        diffs, over = {}, []
+        for k, ref in cpu.items():
+            if not ref.is_floating_point():
+                continue
+            diffs[k] = (card[k] - ref).abs().max().item()
+            tol = (LM_CACHE_REL * ref.abs().max().item()
+                   if k.startswith("cache_") else LM_ATOL)
+            if not diffs[k] <= tol:
+                over.append(f"{k} by {diffs[k]} (tolerance {tol})")
+        if not torch.equal(card["cache_pos"], cpu["cache_pos"]):
+            over.append("cache positions")
+        return {"max_abs_diff": diffs, "past_tolerance": over,
+                "tokens_equal": bool(torch.equal(card["tokens"], cpu["tokens"]))}
+
+    out = {}
+    for name in archs:
+        t0 = clock.perf()
+        cfg = smoke_config(get_arch(name))
+        cpu_batch = lm_batch(cfg, batch, seq, "cpu")
+        drawn = {}
+        for how in ("init_params", "full_fan_in"):
+            params = init_params(lm.model_schema(cfg), cfg.param_dtype, device="cpu",
+                                 generator=torch.Generator().manual_seed(SEED))
+            if how == "full_fan_in":
+                full_fan_in(params, cfg)
+            drawn[how] = compare(cfg, params, cpu_batch)
+        gated = drawn["full_fan_in"]
+        if gated["past_tolerance"] or not gated["tokens_equal"]:
+            raise AssertionError(f"lm_parity {name}: {gated}")
+        out[name] = {"family": cfg.family, **gated,
+                     "init_params": drawn["init_params"],
+                     "seconds": clock.perf() - t0}
+    return out
+
+
+def lm_decode_vs_forward(params, cfg, device, batch: int, prompt: int) -> float:
+    """max |decode step - forward| on the last position: prefill ``prompt``
+    tokens, decode the greedy next one, and run forward over all of them
+    (test_models_smoke.py's check)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx, logits_last, unembed_matrix
+    ctx = Ctx(cfg, torch.device(device))
+    b = lm_batch(cfg, batch, prompt, device, seed=SEED + 2)
+    with torch.inference_mode():
+        logits, cache = lm.prefill(params, b, ctx)
+        nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        step, _ = lm.decode_step(params, {"token": nxt}, lm_grow(cfg, cache, 4, device), ctx)
+        h, _, _ = lm.forward(params, dict(b, tokens=torch.cat([b["tokens"], nxt], 1)), ctx)
+        ref = logits_last(h[:, -1, :], unembed_matrix(params["embed"], ctx), ctx)
+        if not (torch.isfinite(step).all() and torch.isfinite(ref).all()):
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+        bad = ((step - ref).abs() > LM_DECODE_TOL + LM_DECODE_TOL * ref.abs()).sum()
+        return (step - ref).abs().max().item(), int(bad)
+
+
+def lm_fp8_vs_bf16(params16, cfg, device, batch: int, prompt: int) -> dict:
+    """The reference's float8-cache rule (test_models_smoke.py): prefill,
+    then one decode step of token 1 with a bf16 and a float8_e4m3fn cache."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    b = lm_batch(cfg, batch, prompt, device, seed=SEED + 3)
+    outs = {}
+    with torch.inference_mode():
+        for kvd in ("", "float8_e4m3fn"):
+            c = cfg.replace(kv_cache_dtype=kvd)
+            ctx = Ctx(c, torch.device(device))
+            _, cache = lm.prefill(params16, b, ctx)
+            logits, _ = lm.decode_step(params16, {"token": torch.ones(
+                (batch, 1), dtype=torch.int32, device=device)},
+                lm_grow(c, cache, 4, device), ctx)
+            outs[kvd] = logits
+    a, f = outs[""], outs["float8_e4m3fn"]
+    return {"batch": batch, "prompt": prompt,
+            "argmax_equal": int((a.argmax(-1) == f.argmax(-1)).sum()),
+            "max_abs_diff": (a - f).abs().max().item(),
+            "logits_std": a.std().item()}
+
+
+def lm_conditioning(cfg, device, prompt: int = 128, *, full_fan_in: bool) -> dict:
+    """How ``cfg``'s random model reacts to rounding (with the reference's
+    init, or with ``full_fan_in``): layer 0's q and score std, bf16 against
+    float32 prefill logits, float32 decode against forward, and the float8
+    cache against bf16. benchmarks/torch_lm_conditioning.py prints it."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.attention import qkv_project
+    from repro_torch.models.layers import Ctx, rmsnorm
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = lm_weights(c32, device, fan_in=full_fan_in)
+    b = lm_batch(cfg, 2, prompt, device)
+    ctx = Ctx(c32, torch.device(device))
+    with torch.inference_mode():
+        x, pos, _ = lm._embed_inputs(p32, b, ctx)
+        p0 = lm._layer(p32["layers"], 0)
+        h = rmsnorm(p0["ln1"], x, cfg.norm_eps)
+        q, k, _ = qkv_project(p0["attn"], h, h, ctx, pos, pos)
+        G = cfg.n_heads // cfg.n_kv_heads
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(G, 2))
+        scores = scores * cfg.resolved_head_dim() ** -0.5
+        l32, _ = lm.prefill(p32, b, ctx)
+    dvf, _ = lm_decode_vs_forward(p32, c32, device, 2, prompt)
+    p16 = lm_cast(p32, cfg)
+    del p32
+    with torch.inference_mode():
+        l16, _ = lm.prefill(p16, b, Ctx(cfg, torch.device(device)))
+    d = l16 - l32
+    sd = l32.std().item()
+    return {"q_std": q.std().item(), "score_std": scores.std().item(),
+            "bf16_vs_f32_max_over_std": d.abs().max().item() / sd,
+            "bf16_vs_f32_rms_over_std": d.pow(2).mean().sqrt().item() / sd,
+            "bf16_vs_f32_argmax_equal": int((l16.argmax(-1) == l32.argmax(-1)).sum()),
+            "f32_decode_vs_forward_max_abs": dvf,
+            "fp8": lm_fp8_vs_bf16(p16, cfg, device, **LM_FP8)}
+
+
+def lm_serve(device, cfg=None, batch: int = LM_SERVE["batch"],
+             prompt: int = LM_SERVE["prompt"], gen: int = LM_SERVE["gen"]) -> dict:
+    """Phase 36. qwen2-1.5b at full width and depth (``cfg`` overrides),
+    weights from SEED through ``lm_weights``:
+    (a) float32: decode against forward within LM_DECODE_TOL (the weights as
+        ``init_params`` draws them: reported, not gated);
+    (c) float32 prefill logits of the served prompts, kept for (b);
+    (b) bf16: ``greedy_generate`` of ``gen`` tokens after ``batch`` prompts
+        of ``prompt`` tokens (seconds, tokens/s, peak memory), then the same
+        through the prefill and decode bundles with CUDA events (prefill s,
+        decode ms a token: the median step), their tokens equal to
+        greedy_generate's; one decode step traced (kernels a step, the
+        card's busy time); bf16 last-token prefill logits against (c)'s:
+        max |delta| <= LM_BF16_REL * std;
+    (d) a float8_e4m3fn cache against bf16 under the reference's rule at
+        LM_FP8's shape (gated), and at the served prompts (reported)."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import schema_n_params
+    from repro_torch.obs import clock
+    from repro_torch.serving.decode import (greedy_generate, make_decode_step,
+                                            make_prefill)
+    cfg = cfg or get_arch(LM_SERVE["arch"])
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    cuda = torch.device(device).type == "cuda"
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": schema_n_params(lm.model_schema(cfg))}
+
+    raw = lm_weights(c32, device, fan_in=False)
+    out["a_init_params"] = dict(zip(("max_abs_diff", "beyond_tol"), lm_decode_vs_forward(
+        raw, c32, device, **LM_CHECK)))
+    del raw
+    p32 = lm_weights(c32, device)
+    dvf, bad = lm_decode_vs_forward(p32, c32, device, **LM_CHECK)
+    if bad:
+        raise AssertionError(f"lm_serve (a): float32 decode != forward: max "
+                             f"|delta| {dvf}, {bad} logits past {LM_DECODE_TOL}")
+    out["a_float32_decode_vs_forward"] = {"max_abs_diff": dvf, "tol": LM_DECODE_TOL, **LM_CHECK}
+
+    served = lm_batch(cfg, batch, prompt, device)
+    with torch.inference_mode():
+        l32, _ = lm.prefill(p32, served, Ctx(c32, torch.device(device)))
+    p16 = lm_cast(p32, cfg)
+    del p32
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    _lm_sync(device)
+    t0 = clock.perf()
+    tokens = greedy_generate(p16, served, cfg, gen, device=device)
+    _lm_sync(device)
+    gen_s = clock.perf() - t0
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+
+    shape = ShapeConfig("serve", "prefill", prompt, batch)
+    prefill = make_prefill(cfg, shape, device=device)
+    step = make_decode_step(cfg, ShapeConfig("serve", "decode", prompt + gen, batch),
+                            device=device)
+    prefill_s = []
+    for _ in range(2):                   # the first call holds first-use costs
+        with _Timer(device) as t:
+            l16, cache = prefill(p16, served)
+        prefill_s.append(t.seconds)
+    with torch.inference_mode():
+        cache = lm_grow(cfg, cache, gen, device)
+    tok = torch.argmax(l16, -1).to(torch.int32)[:, None]
+    mine, step_s = [], []
+    for _ in range(gen):
+        mine.append(tok)
+        with _Timer(device) as t:
+            logits, cache = step(p16, {"token": tok}, cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        step_s.append(t.seconds)
+    mine = torch.cat(mine, 1)
+    if not torch.equal(mine, tokens):
+        raise AssertionError("lm_serve (b): the bundles' tokens differ from "
+                             "greedy_generate's")
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("lm_serve (b): a token out of the vocabulary")
+    trace = {}
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+        with torch.inference_mode():
+            cache["pos"] -= 1            # decode the last slot again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(p16, {"token": tok}, cache)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # self time: an operator's kernels are its children
+        trace = {"device_busy_ms": sum(getattr(e, "self_device_time_total", 0.0)
+                                       for e in events) / 1e3,
+                 "kernel_launches": sum(e.count for e in events
+                                        if e.key in ("cudaLaunchKernel",
+                                                     "cuLaunchKernel",
+                                                     "cudaLaunchKernelExC")),
+                 "top_device_ms": [
+                     (e.key[:72], e.self_device_time_total / 1e3, e.count)
+                     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]]}
+    decode_ms = 1e3 * statistics.median(step_s)
+    out["b_bfloat16_served"] = {
+        "batch": batch, "prompt": prompt, "generated": gen,
+        "greedy_generate_s": gen_s,
+        "tokens_per_s": batch * gen / gen_s,
+        "prefill_s_first": prefill_s[0], "prefill_s": prefill_s[1],
+        "decode_ms_per_token": decode_ms,
+        "decode_ms_min": 1e3 * min(step_s), "decode_ms_max": 1e3 * max(step_s),
+        "decode_tokens_per_s": batch / (decode_ms / 1e3),
+        "peak_memory_bytes": peak, "decode_step_trace": trace,
+        "bounds": lm_serve_bounds(cfg, batch, prompt, gen),
+        "sample_tokens": tokens[0, :8].tolist()}
+
+    d = l16 - l32
+    sd = l32.std().item()
+    rel = d.abs().max().item() / sd
+    out["c_bfloat16_vs_float32"] = {
+        "max_abs_diff": d.abs().max().item(), "logits_std": sd,
+        "max_over_std": rel, "rms_over_std": d.pow(2).mean().sqrt().item() / sd,
+        "argmax_equal": int((l16.argmax(-1) == l32.argmax(-1)).sum()),
+        "tol_over_std": LM_BF16_REL}
+    if not rel <= LM_BF16_REL:
+        raise AssertionError(f"lm_serve (c): bf16 logits differ from float32 "
+                             f"by {rel} std (tolerance {LM_BF16_REL})")
+
+    fp8 = lm_fp8_vs_bf16(p16, cfg, device, **LM_FP8)
+    out["d_float8_cache"] = {"gated": fp8, "served_shape": lm_fp8_vs_bf16(
+        p16, cfg, device, batch=batch, prompt=prompt)}
+    if fp8["argmax_equal"] != fp8["batch"] or not fp8["max_abs_diff"] < LM_FP8_MAX:
+        raise AssertionError(f"lm_serve (d): the float8 cache fails the "
+                             f"reference's rule: {fp8}")
+    return out
+
+
+def lm_serve_bounds(cfg, batch: int, prompt: int, gen: int) -> dict:
+    """The least time the card could take (published H100 peaks): a decode
+    step reads every weight once (the tied embedding as the unembedding)
+    and the KV cache up to its mean position; prefill does 2 FLOPs per
+    weight per token plus the causal attention's QK and PV products."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves
+    from repro_torch.models.params import torch_dtype
+    weight_bytes = sum(int(np.prod(s.shape)) * torch_dtype(s.dtype or cfg.param_dtype).itemsize
+                       for _, s in leaves(lm.model_schema(cfg)))
+    L, KV, H, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.n_heads, cfg.resolved_head_dim()
+    mean_pos = prompt + gen / 2
+    kv_bytes = 2 * L * batch * mean_pos * KV * Dh * 2
+    decode_ms = 1e3 * (weight_bytes + kv_bytes) / H100_BYTES_PER_S
+    embed = cfg.vocab_size * cfg.d_model
+    dense = sum(int(np.prod(s.shape)) for _, s in leaves(lm.model_schema(cfg))) - embed
+    matmul_flops = 2 * dense * batch * prompt + 2 * embed * batch   # + last-token logits
+    attn_flops = 2 * 2 * L * batch * H * Dh * prompt * (prompt + 1) / 2
+    prefill_ms = 1e3 * max((matmul_flops + attn_flops) / H100_BF16_FLOPS,
+                           (weight_bytes + kv_bytes) / H100_BYTES_PER_S)
+    return {"decode_step_bytes": weight_bytes + kv_bytes, "decode_ms": decode_ms,
+            "decode_by": "bytes", "prefill_flops": matmul_flops + attn_flops,
+            "prefill_ms": prefill_ms, "prefill_by": "operations"}
+
+
+def lm_families(device, archs=LM_FAMILIES, layers: int = LM_FAMILY["layers"],
+                batch: int = LM_FAMILY["batch"], prompt: int = LM_FAMILY["prompt"],
+                gen: int = LM_FAMILY["gen"], width=None) -> dict:
+    """Phase 37. Each arch at full width (``width`` overrides: a function
+    of the config, for the CPU rehearsal), ``layers`` layers (whisper:
+    encoder and decoder), in bf16: prefill of ``batch`` prompts of
+    ``prompt`` tokens (vlm: patches included) timed, ``gen`` greedy tokens,
+    the MoE's dropped share of the prefill's (token, choice) pairs at its
+    capacity factor; and the float32 decode-against-forward check
+    (capacity_factor 16 for the MoE, as the reference's test)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.obs import clock
+    from repro_torch.serving.decode import greedy_generate
+    out = {}
+    for name in archs:
+        cfg = get_arch(name).replace(n_layers=layers)
+        if cfg.n_enc_layers:
+            cfg = cfg.replace(n_enc_layers=layers)
+        if width is not None:
+            cfg = width(cfg)
+        c32 = cfg.replace(dtype="float32", param_dtype="float32",
+                          capacity_factor=16.0 if cfg.n_experts else cfg.capacity_factor)
+        p32 = lm_weights(c32, device)
+        dvf, bad = lm_decode_vs_forward(p32, c32, device, **LM_CHECK)
+        if bad:
+            raise AssertionError(f"lm_families {name}: float32 decode != "
+                                 f"forward by {dvf}")
+        p16 = lm_cast(p32, cfg)
+        del p32
+        served = lm_batch(cfg, batch, prompt, device)
+        stats = {}
+        with torch.inference_mode(), _Timer(device) as t:
+            logits, _ = lm.prefill(p16, served, Ctx(cfg, torch.device(device),
+                                                    moe_stats=stats))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"lm_families {name}: non-finite logits")
+        _lm_sync(device)
+        t0 = clock.perf()
+        tokens = greedy_generate(p16, served, cfg, gen, device=device)
+        _lm_sync(device)
+        gen_s = clock.perf() - t0
+        if tokens.shape != (batch, gen) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"lm_families {name}: bad tokens")
+        row = {"family": cfg.family, "layers": layers, "d_model": cfg.d_model,
+               "batch": batch, "prompt": prompt, "prefill_s": t.seconds,
+               "greedy_generate_s": gen_s, "generated": gen,
+               "tokens_per_s": batch * gen / gen_s,
+               "float32_decode_vs_forward": dvf}
+        if cfg.n_experts:
+            row["moe"] = {"experts": cfg.n_experts, "top_k": cfg.top_k,
+                          "shared": cfg.n_shared_experts,
+                          "capacity_factor": cfg.capacity_factor,
+                          "dropped_share": 1.0 - stats["kept"].item() / stats["routed"]}
+        if cfg.n_patches:
+            row["patches"] = cfg.n_patches
+        if cfg.enc_seq:
+            row["encoder_frames"] = cfg.enc_seq
+        out[name] = row
+        del p16
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def lm_phases(device, card: str) -> dict:
+    """Phases 35-37 (ROADMAP A9): float32 without TF32 where the checks
+    hold float32; none of B1-B4 launches (their counts do not move)."""
+    import torch
+    from repro_torch.kernels.forest_infer import forest_infer
+    from repro_torch.kernels.histogram import fused, histogram
+    from repro_torch.obs import clock
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are allowed; the LM checks hold "
+                             "float32")
+    counts = lambda: (forest_infer.LAUNCHES, forest_infer.SINGLE_LAUNCHES,  # noqa: E731
+                      fused.LAUNCHES, histogram.LAUNCHES)
+    before = counts()
+    seconds = {}
+    t0 = clock.perf()
+    parity = lm_parity(device)
+    seconds["lm_parity"] = clock.perf() - t0
+    emit(phase="lm_parity", card=card, archs=parity, seconds=seconds["lm_parity"])
+    t0 = clock.perf()
+    served = lm_serve(device)
+    seconds["lm_serve"] = clock.perf() - t0
+    emit(phase="lm_serve", card=card, **served, seconds=seconds["lm_serve"])
+    t0 = clock.perf()
+    families = lm_families(device)
+    seconds["lm_families"] = clock.perf() - t0
+    emit(phase="lm_families", card=card, archs=families,
+         seconds=seconds["lm_families"])
+    if counts() != before:
+        raise AssertionError(f"the LM phases launched a B1-B4 kernel: "
+                             f"{before} -> {counts()}")
+    torch.cuda.empty_cache()
+    return seconds
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -4247,6 +4842,9 @@ def main() -> int:
              seconds=clock.perf() - t0)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    # the LM stack's serving path (ROADMAP A9): phases 35-37
+    lm_phases(device, card)
+
     a7_hist = {"train_distributed": {
         "1x1": dist_run["b3_launches"],
         **{k: v["b3_launches_per_rank"]

@@ -20,6 +20,10 @@ The port never sees a ``repro`` object and never unpickles ``model.pkl``
 
 ``binned_from_arrays`` carries a binned dataset (``BinnedFeatures``) across
 the same way, so both packages can grow trees from the same codes.
+
+``lm_params_from_arrays`` carries a language model's weights across: the
+reference's nested param dict as numpy arrays (bf16 leaves as float32
+values, which is exact).
 """
 from __future__ import annotations
 
@@ -217,3 +221,48 @@ def binned_from_arrays(codes, n_bins, is_cat, boundaries,
         boundaries=[None if b is None else np.asarray(b, np.float32)
                     for b in boundaries],
         names=list(names))
+
+
+def lm_params_from_arrays(cfg, tree: dict, *, device=None, dtype=None) -> dict:
+    """The port's nested param dict for ``cfg`` from the reference's, given
+    as numpy arrays (e.g. ``jax.tree.map(lambda a: np.asarray(a,
+    np.float32), params)``). Every leaf's path and shape must match
+    ``lm.model_schema(cfg)``; each is cast to its spec's dtype (``dtype``, a
+    dtype name, replaces ``cfg.param_dtype`` as the default) on ``device``
+    (None is cuda)."""
+    import torch
+
+    from repro_torch.core.engines import resolve_device
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves, torch_dtype
+    dev = resolve_device(device)
+    schema = lm.model_schema(cfg)
+    want = {path for path, _ in leaves(schema)}
+    got = {path for path, _ in leaves(tree)}
+    if want != got:
+        missing = sorted(".".join(p) for p in want - got)
+        extra = sorted(".".join(p) for p in got - want)
+        raise YdfError(f"{cfg.name}: the param tree does not match the "
+                       f"schema: missing {missing}, extra {extra}")
+    arrays = dict(leaves(tree))
+    default = dtype or cfg.param_dtype
+
+    out = {}
+    for path, spec in leaves(schema):
+        a = np.asarray(arrays[path])
+        if tuple(a.shape) != tuple(spec.shape):
+            raise YdfError(f"{cfg.name}: {'.'.join(path)} has shape "
+                           f"{a.shape}, the schema says {spec.shape}")
+        out[path] = torch.tensor(a, dtype=torch.float32).to(
+            device=dev, dtype=torch_dtype(spec.dtype or default))
+    return _nest(out)
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = v
+    return out

@@ -1,0 +1,595 @@
+"""Model assembly for the attention families (dense / moe / vlm / audio).
+
+The same interface as the reference's ``repro.models.lm``:
+
+  * ``model_schema(cfg)``     — nested ParamSpec tree (init + meta shapes + axes)
+  * ``forward(params, batch, ctx)``            — final hidden states (train/prefill)
+  * ``loss_fn(params, batch, ctx)``            — chunked CE loss (+ MoE aux), forward only
+  * ``init_cache / cache_spec / cache_axes``  — decode caches per family
+  * ``prefill(params, batch, ctx)``            — forward + cache population
+  * ``decode_step(params, batch, cache, ctx)`` — one-token serving step
+
+Params are plain nested dicts of tensors; layers are stacked on a leading
+'layers' dim and applied by a Python loop over it (``remat`` is a training
+setting and has no effect here). The decode cache is updated in place.
+The hybrid (zamba2) and ssm (rwkv6) families need ``models/ssm.py``, which
+is not ported yet (ROADMAP A9.2): their entry points raise ``YdfError``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.api import YdfError
+from repro_torch.models.attention import (
+    attention_schema,
+    decode_attention,
+    flash_attention,
+    out_project,
+    qkv_project,
+)
+from repro_torch.models.layers import (
+    Ctx,
+    chunked_softmax_xent,
+    embed,
+    embed_schema,
+    layernorm,
+    layernorm_schema,
+    logits_last,
+    mlp,
+    mlp_schema,
+    rmsnorm,
+    rmsnorm_schema,
+    unembed_matrix,
+)
+from repro_torch.models.moe import moe_block, moe_schema
+from repro_torch.models.params import (
+    Schema,
+    init_params,
+    leaves,
+    stack_layers,
+    torch_dtype,
+)
+
+ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
+def _check_family(cfg: ModelConfig) -> str:
+    fam = cfg.family
+    if fam in ("hybrid", "ssm"):
+        raise YdfError(
+            f"{cfg.name}: the {fam} family needs models/ssm.py (Mamba2, "
+            "RWKV6), which the port does not have yet (ROADMAP A9.2). The "
+            f"port runs the attention families {', '.join(ATTN_FAMILIES)}.")
+    if fam not in ATTN_FAMILIES:
+        raise ValueError(fam)
+    return fam
+
+
+# =====================================================================
+# Schemas
+# =====================================================================
+
+def _attn_mlp_block_schema(cfg: ModelConfig) -> Schema:
+    """One decoder block: [ln1 -> attn] + [ln2 -> mlp/moe] (or parallel)."""
+    sch: Schema = {
+        "ln1": rmsnorm_schema(cfg.d_model),
+        "attn": attention_schema(cfg),
+    }
+    if not cfg.parallel_block:
+        sch["ln2"] = rmsnorm_schema(cfg.d_model)
+    if cfg.n_experts:
+        sch["moe"] = moe_schema(cfg)
+    else:
+        sch["mlp"] = mlp_schema(cfg)
+    return sch
+
+
+def _whisper_enc_block_schema(cfg: ModelConfig) -> Schema:
+    return {
+        "ln1": layernorm_schema(cfg.d_model),
+        "attn": attention_schema(cfg),
+        "ln2": layernorm_schema(cfg.d_model),
+        "mlp": mlp_schema(cfg),
+    }
+
+
+def _whisper_dec_block_schema(cfg: ModelConfig) -> Schema:
+    return {
+        "ln1": layernorm_schema(cfg.d_model),
+        "self_attn": attention_schema(cfg),
+        "ln2": layernorm_schema(cfg.d_model),
+        "cross_attn": attention_schema(cfg),
+        "ln3": layernorm_schema(cfg.d_model),
+        "mlp": mlp_schema(cfg),
+    }
+
+
+def model_schema(cfg: ModelConfig) -> Schema:
+    fam = _check_family(cfg)
+    sch: Schema = {"embed": embed_schema(cfg)}
+    if fam in ("dense", "moe", "vlm"):
+        sch["layers"] = stack_layers(cfg.n_layers, _attn_mlp_block_schema(cfg))
+        sch["final_norm"] = rmsnorm_schema(cfg.d_model)
+    else:  # audio
+        sch["enc_layers"] = stack_layers(cfg.n_enc_layers, _whisper_enc_block_schema(cfg))
+        sch["enc_norm"] = layernorm_schema(cfg.d_model)
+        sch["dec_layers"] = stack_layers(cfg.n_layers, _whisper_dec_block_schema(cfg))
+        sch["final_norm"] = layernorm_schema(cfg.d_model)
+    return sch
+
+
+# =====================================================================
+# Block applications
+# =====================================================================
+
+def _attn_mlp_block(p, x, ctx: Ctx, positions, *, causal=True, prefix_len=None):
+    """Standard decoder block over full sequences (train / prefill)."""
+    cfg = ctx.cfg
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = qkv_project(p["attn"], h, h, ctx, positions, positions)
+    a = flash_attention(q, k, v, positions, positions, ctx, causal=causal,
+                        prefix_len=prefix_len)
+    a = out_project(p["attn"], a, ctx)
+    if cfg.parallel_block:
+        if "moe" in p:
+            m, aux = moe_block(p["moe"], h, ctx)
+        else:
+            m = mlp(p["mlp"], h, ctx)
+        x = x + a + m
+    else:
+        x = x + a
+        h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if "moe" in p:
+            m, aux = moe_block(p["moe"], h2, ctx)
+        else:
+            m = mlp(p["mlp"], h2, ctx)
+        x = x + m
+    return x, (a, k, v, aux)
+
+
+def _layer(stacked, i: int):
+    """Layer ``i`` of a stacked param tree (views, no copies)."""
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def _n_layers(stacked) -> int:
+    return leaves(stacked)[0][1].shape[0]
+
+
+def _scan(body, carry, stacked):
+    """Apply ``body(carry, layer_params) -> (carry, y)`` over the leading
+    'layers' dim of ``stacked``; returns (carry, [y per layer])."""
+    ys = []
+    for i in range(_n_layers(stacked)):
+        carry, y = body(carry, _layer(stacked, i))
+        ys.append(y)
+    return carry, ys
+
+
+# =====================================================================
+# Forward (train / prefill) per family
+# =====================================================================
+
+def _positions(B: int, S: int, device, offset: int = 0):
+    return (torch.arange(S, dtype=torch.int32, device=device)[None, :]
+            + offset).expand(B, S)
+
+
+def _embed_inputs(params, batch, ctx: Ctx):
+    """Returns (x, positions, prefix_len). Handles vlm patch prefix and
+    audio(decoder) token embedding."""
+    cfg = ctx.cfg
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(ctx.dtype)  # (B, P, D)
+        toks = embed(params["embed"], batch["tokens"], ctx)  # (B, S-P, D)
+        x = torch.cat([patches, toks], dim=1)
+        B, S = x.shape[0], x.shape[1]
+        return x, _positions(B, S, x.device), cfg.n_patches
+    x = embed(params["embed"], batch["tokens"], ctx)
+    B, S = x.shape[0], x.shape[1]
+    if cfg.family == "audio":
+        x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
+    return x, _positions(B, S, x.device), None
+
+
+def _sinusoid(S: int, D: int, device):
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device), 2.0 * dim / D)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _whisper_encode(params, frames, ctx: Ctx):
+    """frames: (B, T, D) stub frame embeddings -> encoder states (B, T, D)."""
+    cfg = ctx.cfg
+    x = frames.to(ctx.dtype) + _sinusoid(frames.shape[1], cfg.d_model,
+                                         frames.device).to(ctx.dtype)[None]
+    pos = _positions(x.shape[0], x.shape[1], x.device)
+
+    def body(x, p):
+        h = layernorm(p["ln1"], x, cfg.norm_eps)
+        q, k, v = qkv_project(p["attn"], h, h, ctx, pos, pos, use_rope=False)
+        a = out_project(p["attn"], flash_attention(q, k, v, pos, pos, ctx, causal=False), ctx)
+        x = x + a
+        x = x + mlp(p["mlp"], layernorm(p["ln2"], x, cfg.norm_eps), ctx)
+        return x, None
+
+    x, _ = _scan(body, x, params["enc_layers"])
+    return layernorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def forward(params, batch, ctx: Ctx, *, return_cache: bool = False):
+    """Full-sequence forward. Returns (h_final, cache_or_None, aux_loss).
+
+    cache (when return_cache) is the same structure ``decode_step`` consumes,
+    with entries valid for positions [0, S).
+    """
+    if _check_family(ctx.cfg) == "audio":
+        return _forward_whisper(params, batch, ctx, return_cache)
+    return _forward_attn(params, batch, ctx, return_cache)
+
+
+def _forward_attn(params, batch, ctx: Ctx, return_cache: bool):
+    cfg = ctx.cfg
+    x, pos, prefix = _embed_inputs(params, batch, ctx)
+
+    def body(x, p):
+        x, (_, k, v, aux) = _attn_mlp_block(p, x, ctx, pos, prefix_len=prefix)
+        return x, ((k, v) if return_cache else None, aux)
+
+    x, ys = _scan(body, x, params["layers"])
+    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    aux = (torch.stack([y[1] for y in ys]).sum() if cfg.n_experts
+           else torch.zeros((), dtype=torch.float32, device=x.device))
+    cache = None
+    if return_cache:
+        cache = {"k": torch.stack([y[0][0] for y in ys]),
+                 "v": torch.stack([y[0][1] for y in ys]),
+                 "pos": _full_pos(x)}
+    return h, cache, aux
+
+
+def _full_pos(x):
+    return torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+
+
+def _forward_whisper(params, batch, ctx: Ctx, return_cache: bool):
+    cfg = ctx.cfg
+    enc = _whisper_encode(params, batch["frames"], ctx)  # (B, T, D)
+    x, pos, _ = _embed_inputs(params, batch, ctx)
+    enc_pos = _positions(enc.shape[0], enc.shape[1], enc.device)
+
+    def body(x, p):
+        h = layernorm(p["ln1"], x, cfg.norm_eps)
+        q, k, v = qkv_project(p["self_attn"], h, h, ctx, pos, pos, use_rope=False)
+        x = x + out_project(p["self_attn"],
+                            flash_attention(q, k, v, pos, pos, ctx, causal=True), ctx)
+        h = layernorm(p["ln2"], x, cfg.norm_eps)
+        cq, ck, cv = qkv_project(p["cross_attn"], h, enc, ctx, use_rope=False)
+        x = x + out_project(p["cross_attn"],
+                            flash_attention(cq, ck, cv, pos, enc_pos, ctx, causal=False), ctx)
+        x = x + mlp(p["mlp"], layernorm(p["ln3"], x, cfg.norm_eps), ctx)
+        return x, ((k, v, ck, cv) if return_cache else None)
+
+    x, ys = _scan(body, x, params["dec_layers"])
+    h = layernorm(params["final_norm"], x, cfg.norm_eps)
+    cache = None
+    if return_cache:
+        cache = {name: torch.stack([y[j] for y in ys])
+                 for j, name in enumerate(("k", "v", "xk", "xv"))}
+        cache["pos"] = _full_pos(x)
+    return h, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# =====================================================================
+# Loss
+# =====================================================================
+
+def loss_fn(params, batch, ctx: Ctx):
+    """Mean CE over label positions (+ MoE aux). Returns (loss, metrics)."""
+    cfg = ctx.cfg
+    h, _, aux = forward(params, batch, ctx)
+    if cfg.family == "vlm":  # loss on text positions only
+        h = h[:, cfg.n_patches:, :]
+    labels = batch["labels"]
+    weights = batch.get("weights")
+    if weights is None:
+        weights = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    un = unembed_matrix(params["embed"], ctx)
+    sum_loss, sum_w = chunked_softmax_xent(h, un, labels, weights, ctx)
+    ce = sum_loss / torch.clamp(sum_w, min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": sum_w}
+
+
+# =====================================================================
+# Decode caches
+# =====================================================================
+
+def cache_spec(cfg: ModelConfig, batch_size: int, max_len: int) -> dict[str, Any]:
+    """Meta-device tensors for the decode cache (also defines the structure)."""
+    fam = _check_family(cfg)
+    dt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
+    B, L = batch_size, cfg.n_layers
+    KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim()
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out: dict[str, Any] = {"pos": meta((B,), torch.int32)}
+    out["k"] = meta((L, B, max_len, KV, Dh), dt)
+    out["v"] = meta((L, B, max_len, KV, Dh), dt)
+    if fam == "audio":
+        out["xk"] = meta((L, B, cfg.enc_seq, KV, Dh), dt)
+        out["xv"] = meta((L, B, cfg.enc_seq, KV, Dh), dt)
+    return out
+
+
+CACHE_AXES = {
+    "pos": ("batch",),
+    "k": ("layers", "batch", "kv_len", "kv_heads", "qkv"),
+    "v": ("layers", "batch", "kv_len", "kv_heads", "qkv"),
+    "xk": ("layers", "batch", "kv_len", "kv_heads", "qkv"),
+    "xv": ("layers", "batch", "kv_len", "kv_heads", "qkv"),
+    "conv": ("layers", None, "batch", None, "heads"),
+    "ssm": ("layers", None, "batch", "heads", None, None),
+    "tshift": ("layers", "batch", "embed_act"),
+    "cshift": ("layers", "batch", "embed_act"),
+    "wkv": ("layers", "batch", "heads", None, None),
+}
+
+
+def cache_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    return {k: CACHE_AXES[k] for k in cache_spec(cfg, 1, 8)}
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *, device=None):
+    from repro_torch.core.engines import resolve_device
+    dev = resolve_device(device)
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+            for k, s in cache_spec(cfg, batch_size, max_len).items()}
+
+
+# float8_e4m3fn's largest finite value is 448; values above 464 (the half
+# way to the next step) are NaN in ml_dtypes' cast, which the reference uses
+_E4M3_NAN_ABOVE = 464.0
+
+
+def to_cache_dtype(x, dtype: torch.dtype):
+    """``x.to(dtype)``, except that a float8_e4m3fn cast gives NaN (sign
+    kept) beyond the format's range, as the reference's cast does, where
+    torch's saturates to +-448."""
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn:
+        return y
+    nan = torch.where(x < 0, 0xFF, 0x7F).to(torch.uint8)
+    bits = torch.where(x.abs() > _E4M3_NAN_ABOVE, nan, y.view(torch.uint8))
+    return bits.view(dtype)
+
+
+def _cache_insert(cache_l, new, pos):
+    """Writes new (B, 1, KV, Dh) into cache_l (B, Smax, KV, Dh) at pos (B,),
+    in place. The positions were checked by ``decode_step``."""
+    B = cache_l.shape[0]
+    rows = torch.arange(B, device=cache_l.device)
+    cache_l[rows, pos.long()] = to_cache_dtype(new[:, 0], cache_l.dtype)
+
+
+def _check_positions(cache):
+    """The reference clamps an out-of-range write to the cache's last slot;
+    the port refuses it (one host read of the positions a step)."""
+    max_len = cache["k"].shape[2]
+    last = int(cache["pos"].max())
+    if last >= max_len:
+        raise YdfError(f"decode position {last} is past the cache's "
+                       f"{max_len} slots; grow the cache (init_cache) first")
+
+
+# =====================================================================
+# Decode step (one new token) per family
+# =====================================================================
+
+def decode_step(params, batch, cache, ctx: Ctx):
+    """batch: {'token': (B,1) int32}. Returns (logits (B,V) fp32, cache);
+    the cache's tensors are updated in place and ``pos`` advanced."""
+    fam = _check_family(ctx.cfg)
+    _check_positions(cache)
+    if fam == "audio":
+        h, cache = _decode_whisper(params, batch, cache, ctx)
+    else:
+        h, cache = _decode_attn(params, batch, cache, ctx)
+    logits = logits_last(h[:, -1, :], unembed_matrix(params["embed"], ctx), ctx)
+    return logits, cache
+
+
+def _decode_embed(params, batch, cache, ctx: Ctx):
+    x = embed(params["embed"], batch["token"], ctx)  # (B, 1, D)
+    pos = cache["pos"]  # (B,) index where this token is written
+    if ctx.cfg.family == "audio":
+        x = x + _sinusoid_at(pos, ctx.cfg.d_model)[:, None, :].to(x.dtype)
+    return x, pos
+
+
+def _sinusoid_at(p, D: int):
+    """p: (B,) positions -> (B, D)."""
+    dim = torch.arange(D // 2, dtype=torch.float32, device=p.device)
+    ang = p.float()[:, None] / torch.pow(torch.tensor(10_000.0, device=p.device),
+                                         2.0 * dim / D)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _decode_attn(params, batch, cache, ctx: Ctx):
+    cfg = ctx.cfg
+    x, pos = _decode_embed(params, batch, cache, ctx)
+    pos2 = pos[:, None]  # (B, 1)
+    layers = params["layers"]
+    for i in range(_n_layers(layers)):
+        p = _layer(layers, i)
+        k_c, v_c = cache["k"][i], cache["v"][i]
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        q, k, v = qkv_project(p["attn"], h, h, ctx, pos2, pos2)
+        _cache_insert(k_c, k, pos)
+        _cache_insert(v_c, v, pos)
+        a = decode_attention(q, k_c, v_c, pos, ctx)
+        a = out_project(p["attn"], a, ctx)
+        if cfg.parallel_block:
+            m = moe_block(p["moe"], h, ctx)[0] if "moe" in p else mlp(p["mlp"], h, ctx)
+            x = x + a + m
+        else:
+            x = x + a
+            h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            m = moe_block(p["moe"], h2, ctx)[0] if "moe" in p else mlp(p["mlp"], h2, ctx)
+            x = x + m
+    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return h, cache
+
+
+def _decode_whisper(params, batch, cache, ctx: Ctx):
+    cfg = ctx.cfg
+    x, pos = _decode_embed(params, batch, cache, ctx)
+    pos2 = pos[:, None]
+    layers = params["dec_layers"]
+    for i in range(_n_layers(layers)):
+        p = _layer(layers, i)
+        k_c, v_c = cache["k"][i], cache["v"][i]
+        h = layernorm(p["ln1"], x, cfg.norm_eps)
+        q, k, v = qkv_project(p["self_attn"], h, h, ctx, pos2, pos2, use_rope=False)
+        _cache_insert(k_c, k, pos)
+        _cache_insert(v_c, v, pos)
+        x = x + out_project(p["self_attn"], decode_attention(q, k_c, v_c, pos, ctx), ctx)
+        h = layernorm(p["ln2"], x, cfg.norm_eps)
+        cq, _, _ = qkv_project(p["cross_attn"], h, h[:, :0], ctx, use_rope=False)
+        ca = decode_attention(cq, cache["xk"][i], cache["xv"][i], pos, ctx,
+                              valid_len=cfg.enc_seq)
+        x = x + out_project(p["cross_attn"], ca, ctx)
+        x = x + mlp(p["mlp"], layernorm(p["ln3"], x, cfg.norm_eps), ctx)
+    h = layernorm(params["final_norm"], x, cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return h, cache
+
+
+def prefill(params, batch, ctx: Ctx):
+    """Full-sequence prefill: returns (last-token logits (B,V), cache)."""
+    h, cache, _ = forward(params, batch, ctx, return_cache=True)
+    logits = logits_last(h[:, -1, :], unembed_matrix(params["embed"], ctx), ctx)
+    return logits, cache
+
+
+# =====================================================================
+# Batch specs (meta tensors) + logical axes
+# =====================================================================
+
+BATCH_AXES = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "weights": ("batch", "seq"),
+    "patches": ("batch", "seq", "embed_act"),
+    "frames": ("batch", "kv_len", "embed_act"),
+    "token": ("batch", None),
+}
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """Model inputs for a given assigned shape, as meta-device tensors."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, torch_dtype(cfg.dtype)
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": meta((B, 1), i32)}
+    out: dict[str, Any] = {}
+    if cfg.family == "vlm":
+        S_text = S - cfg.n_patches
+        out["patches"] = meta((B, cfg.n_patches, cfg.d_model), dt)
+        out["tokens"] = meta((B, S_text), i32)
+        if shape.kind == "train":
+            out["labels"] = meta((B, S_text), i32)
+        return out
+    if cfg.family == "audio":
+        out["frames"] = meta((B, cfg.enc_seq, cfg.d_model), dt)
+    out["tokens"] = meta((B, S), i32)
+    if shape.kind == "train":
+        out["labels"] = meta((B, S), i32)
+    return out
+
+
+def batch_axes(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, tuple]:
+    return {k: BATCH_AXES[k] for k in batch_spec(cfg, shape)}
+
+
+def make_batch(generator: torch.Generator, cfg: ModelConfig, shape: ShapeConfig,
+               *, device=None):
+    """Random concrete batch matching batch_spec (for smoke tests/examples),
+    drawn with ``generator`` (on ``device``)."""
+    from repro_torch.core.engines import resolve_device
+    dev = resolve_device(device)
+    out = {}
+    for name, s in batch_spec(cfg, shape).items():
+        if s.dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, s.shape, generator=generator,
+                                      dtype=torch.int32, device=dev)
+        else:
+            v = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                            device=dev)
+            out[name] = v.to(s.dtype) * torch.tensor(0.02, dtype=s.dtype, device=dev)
+    return out
+
+
+# =====================================================================
+# nn.Module wrapper
+# =====================================================================
+
+class _Params(nn.Module):
+    """One level of a nested param dict: dicts become submodules, tensors
+    parameters (frozen: this is the serving path)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Params(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> dict:
+        out = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+class LanguageModel(_Params):
+    """A model of ``cfg`` holding its nested param dict as registered
+    parameters (``state_dict()`` keys are the dotted paths, e.g.
+    ``layers.attn.wq``). Without ``params``, draws them with ``generator``
+    (``init_params``) on ``device`` (None is cuda)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
+                 device=None, generator: torch.Generator | None = None):
+        from repro_torch.core.engines import resolve_device
+        dev = resolve_device(device)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            params = init_params(model_schema(cfg), cfg.param_dtype,
+                                 generator=generator, device=dev)
+        super().__init__(params)
+        self.cfg = cfg
+        self.ctx = Ctx(cfg, dev)
+
+    def forward(self, batch, *, return_cache: bool = False):
+        return forward(self.tree(), batch, self.ctx, return_cache=return_cache)
+
+    def prefill(self, batch):
+        return prefill(self.tree(), batch, self.ctx)
+
+    def decode_step(self, batch, cache):
+        return decode_step(self.tree(), batch, cache, self.ctx)

@@ -1,9 +1,15 @@
-"""Forest serving of the port: padded-dispatch bundles, the micro-batcher,
-the fault harness, the fault-tolerant ``ForestServer`` and its asyncio
-front end ``AsyncForestServer`` (mirrors the forest half of
-``repro.serving``)."""
+"""Serving of the port (mirrors ``repro.serving``): for forests the
+padded-dispatch bundles, the micro-batcher, the fault harness, the
+fault-tolerant ``ForestServer`` and its asyncio front end
+``AsyncForestServer``; for the LM stack prefill and decode bundles and
+``greedy_generate`` (``serving.decode``)."""
 
 _LAZY = {
+    "ServeBundle": "repro_torch.serving.decode",
+    "make_decode_step": "repro_torch.serving.decode",
+    "make_prefill": "repro_torch.serving.decode",
+    "serve_state_specs": "repro_torch.serving.decode",
+    "greedy_generate": "repro_torch.serving.decode",
     "ForestServeBundle": "repro_torch.serving.forest",
     "MicroBatcher": "repro_torch.serving.forest",
     "make_forest_server": "repro_torch.serving.forest",

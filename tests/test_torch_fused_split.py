@@ -234,3 +234,35 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     assert fused.LAUNCHES == before
     for a, b in zip(*got):
         assert torch.equal(a, b)
+
+
+def test_plain_version_repeats_on_the_ragged_class_case():
+    """ROADMAP C: one xdist run gave 17.742813 for slot 3 of ``ragged
+    N-class`` where the reference gives 17.74347. The plain versions repeat
+    their bits over many calls, and the float32 scoring of the slot's exact
+    counts gives 17.74347 whichever log computes it (numpy's, a float64 log
+    rounded, torch's)."""
+    codes, stats, slot = frontier(777 + 5, 777, 5, 6, "class")
+    kw = dict(kind="class", l2=0.0, min_examples=5)
+    first = port(fused_split_ref, codes, stats, slot, 6, **kw)
+    for _ in range(100):
+        for fn in (fused_split_ref, fused.fused_split):
+            again = port(fn, codes, stats, slot, 6, **kw)
+            for a, b in zip(first, again):
+                np.testing.assert_array_equal(a, b)
+    gain, col, sbin = (a[3] for a in first)
+    assert gain == np.float32(17.74347) and (col, sbin) == (4, 178)
+    hist = histogram_ref(torch.from_numpy(codes), torch.from_numpy(stats).double(),
+                         torch.from_numpy(slot), 6, 256)[3, col].numpy()
+    left = hist[:sbin].sum(0).astype(np.float32)
+    parent = hist.sum(0).astype(np.float32)
+    right = parent - left
+
+    def score(st, log):
+        p = st[:-1] / np.maximum(st[-1], np.float32(1e-12))
+        return -st[-1] * -(p * log(np.maximum(p, np.float32(1e-12)))).sum(dtype=np.float32)
+
+    for log in (np.log, lambda x: np.log(x.astype(np.float64)).astype(np.float32),
+                lambda x: torch.log(torch.from_numpy(x)).numpy()):
+        assert np.float32(score(left, log) + score(right, log)
+                          - score(parent, log)) == gain
