@@ -348,6 +348,38 @@ JSON line each:
                      tokens, the MoE's dropped share, and the float32
                      decode-against-forward check. None of B1-B4 launches
                      in phases 35-37 (their counts do not move).
+ 38. lm_ssm_parity — zamba2-2.7b and rwkv6-3b (LM_SSM_ARCHS, the hybrid and
+                     ssm families) as phase 35: smoke configs, card against
+                     CPU, the conv/ssm and shift/wkv states among the caches.
+ 39. lm_ssm_serve  — zamba2-2.7b (54 Mamba2 layers, 9 uses of the shared
+                     block) and rwkv6-3b (32 layers) at full width and
+                     depth, weights from ``lm_ssm_weights`` (full fan-in,
+                     residual branches rescaled, the decays' published
+                     inits; the reference's draw reported): float32
+                     decode against forward after a prompt of
+                     LM_SSM_CHECK["prompt"] tokens (the chunked form
+                     against the recurrence, LM_DECODE_TOL); bf16 serving
+                     of 4 prompts of 2,048 tokens and 32 greedy tokens
+                     (prefill s, decode ms a token, tokens/s, peak memory,
+                     launches a step, bounds from the shapes); bf16
+                     against float32 prefill logits (LM_BF16_REL; zamba2
+                     gated at one group, LM_SSM_BF16_DEPTH, and reported
+                     at full depth).
+ 40. lm_train      — (a) qwen2-1.5b at full width and depth, bf16 params
+                     (attention projections at full fan-in; one step on
+                     the reference's draw reported), AdamW, remat "full":
+                     LM_TRAIN["steps"] steps of 4 x
+                     2,048 tokens through ``make_train_step`` (median step
+                     s, tokens/s, peak memory, the bound); loss and grad
+                     norm finite. (b) ``train_loop`` at qwen2-1.5b's width
+                     cut to 2 layers: 3 + 3 steps with a resume equal to 6
+                     straight, bit for bit (checkpoint bytes, save and
+                     restore s). (c) zamba2 cut to one group and rwkv6 to 2
+                     layers at full width and their real chunks, 2 x 2,048
+                     tokens: one step, every gradient finite. (d) every
+                     arch's smoke config: one step, card against CPU (loss
+                     LM_TRAIN_LOSS_REL, grad norm LM_TRAIN_GNORM_REL). None
+                     of B1-B4 launches in phases 38-40 either.
 
 train_uplift also trains the numerical-outcome case (``numerical_uplift``)
 and holds it to the CPU with ``equal_but_gain``. After the timings phase,
@@ -540,9 +572,11 @@ LINEAR_ATOL = 1e-4
 # width cut to LM_FAMILY_LAYERS layers (whisper: as many encoder layers).
 # The served weights are ``init_params``' with the attention projections
 # rescaled to their full fan-in (``full_fan_in``; PERF.md §6).
-LM_PARITY_ARCHS = ("qwen2-1.5b", "qwen3-8b", "qwen1.5-32b", "command-r-35b",
-                   "qwen2-moe-a2.7b", "grok-1-314b", "paligemma-3b",
-                   "whisper-large-v3")
+LM_ATTN_ARCHS = ("qwen2-1.5b", "qwen3-8b", "qwen1.5-32b", "command-r-35b",
+                 "qwen2-moe-a2.7b", "grok-1-314b", "paligemma-3b",
+                 "whisper-large-v3")
+LM_SSM_ARCHS = ("zamba2-2.7b", "rwkv6-3b")
+LM_PARITY_ARCHS = LM_ATTN_ARCHS + LM_SSM_ARCHS
 LM_PARITY = dict(batch=2, seq=32, steps=8)
 LM_ATOL = 1e-4
 LM_CACHE_REL = 1e-5
@@ -554,6 +588,29 @@ LM_FP8_MAX = 0.25
 LM_BF16_REL = 0.25
 LM_FAMILIES = ("qwen2-moe-a2.7b", "paligemma-3b", "whisper-large-v3")
 LM_FAMILY = dict(layers=2, batch=4, prompt=512, gen=8)
+# Phases 38-40 (ROADMAP A9, second part). LM_SSM_SERVE: zamba2 and rwkv6 at
+# full width and depth, bf16; LM_SSM_CHECK: the float32 decode-against-
+# forward check, its forward over 512 tokens (two of zamba2's 256-token
+# chunks, four of rwkv6's 128; the prompt of 511 runs 7 chunks of 73).
+# LM_TRAIN: qwen2-1.5b's train steps; LM_TRAIN_RESUME: train_loop at its
+# width cut to 2 layers; LM_TRAIN_SSM: one step of each ssm arch at full
+# width (zamba2: one group of 6 Mamba2 layers and the shared block);
+# LM_TRAIN_PARITY: every smoke config's step, card against CPU.
+LM_SSM_SERVE = dict(batch=4, prompt=2048, gen=32)
+LM_SSM_CHECK = dict(batch=2, prompt=511)
+LM_TRAIN = dict(arch="qwen2-1.5b", batch=4, seq=2048, steps=10)
+LM_TRAIN_RESUME = dict(layers=2, batch=2, seq=512, steps=6, split=3)
+LM_TRAIN_SSM = dict(batch=2, seq=2048, layers={"zamba2-2.7b": 6, "rwkv6-3b": 2})
+LM_TRAIN_PARITY = dict(batch=2, seq=32)
+# The depth at which phase 39 gates bf16 against float32 (full depth when
+# absent): zamba2's random hybrid compounds bf16 rounding through its 54
+# layers and 2,048 positions past LM_BF16_REL with every weight recipe
+# tried, as the reference does at 6 and 12 layers on the CPU (PERF.md §6);
+# one group (6 Mamba2 layers and the shared block) runs the same code.
+LM_SSM_BF16_DEPTH = {"zamba2-2.7b": 6}
+LM_TRAIN_LOSS_REL = 1e-5
+LM_TRAIN_GNORM_REL = 1e-4
+H100_F32_FLOPS = 67e12
 # published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
@@ -4066,7 +4123,7 @@ class _Timer:
 
 def full_fan_in(params: dict, cfg) -> dict:
     """Rescales, in place, every attention block's projections of params
-    drawn by ``init_params`` to their full fan-in: wq/wk/wv (d_model, heads,
+    drawn by ``init_params`` (zamba2's shared block too) to their full fan-in: wq/wk/wv (d_model, heads,
     head_dim) to std 1/sqrt(d_model), wo (heads, head_dim, d_model) to
     1/sqrt(heads * head_dim). The reference's rule takes fan_in =
     shape[-2] (the head count, and head_dim), which at qwen2-1.5b's widths
@@ -4082,10 +4139,50 @@ def full_fan_in(params: dict, cfg) -> dict:
         wo = attn["wo"]
         wo.mul_(1.0 / math.sqrt(wo.shape[-3]))
 
-    for key in ("layers", "enc_layers", "dec_layers"):
+    for key in ("layers", "enc_layers", "dec_layers", "shared"):
         for name in ("attn", "self_attn", "cross_attn"):
             if name in params.get(key, {}):
                 rescale(params[key][name])
+    return params
+
+
+def residual_rescale(params: dict, cfg) -> dict:
+    """Scales, in place, every residual branch's output projection (the
+    attention's wo, the MLP's w_out, Mamba2's out_proj, RWKV6's time-mix wo
+    and channel-mix wv) by 1 / sqrt(2 n_layers): GPT-2's init, which
+    Mamba's ``rescale_prenorm_residual`` follows. With unit-scale branches
+    the residual stream of a deep random model compounds each layer's
+    rounding (benchmarks/torch_lm_ssm_conditioning.py)."""
+    from repro_torch.models.params import leaves
+    s = (2 * cfg.n_layers) ** -0.5
+    for path, w in leaves(params):
+        if path[-1] in ("wo", "w_out", "out_proj") or path[-2:] == ("channel", "wv"):
+            w.mul_(s)
+    return params
+
+
+def ssm_init(params: dict, cfg, seed: int = SEED) -> dict:
+    """The published inits of the recurrences' decay parameters, in place,
+    where the reference draws zeros. Mamba2: dt log-uniform in [1e-3,
+    1e-1] with dt_bias its inverse softplus, and A uniform in [1, 16]
+    (A_log = log A). RWKV6: w0 per channel from -6 to -1 (the Finch
+    code's decay_speed ramp, its exponent rising with depth)."""
+    import math
+
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "hybrid":
+        m = params["mamba"]["m"]
+        u = torch.rand(m["dt_bias"].shape, generator=g)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+        m["A_log"].copy_(torch.log(1 + 15 * torch.rand(m["A_log"].shape, generator=g)))
+    elif cfg.family == "ssm":
+        w0 = params["layers"]["time"]["w0"]
+        L, D = w0.shape
+        n = torch.arange(D, dtype=torch.float64) / (D - 1)
+        depth = torch.arange(L, dtype=torch.float64)[:, None] / max(L - 1, 1)
+        w0.copy_(-6 + 5 * n[None, :] ** (0.7 + 1.3 * depth))
     return params
 
 
@@ -4130,7 +4227,7 @@ def lm_grow(cfg, cache: dict, extra: int, device) -> dict:
     """The prefill cache in a zeroed decode cache ``extra`` slots longer."""
     from repro_torch.models import lm
     from repro_torch.serving.decode import _embed_cache
-    B, S = cache["k"].shape[1], cache["k"].shape[2]
+    B, S = cache["pos"].shape[0], int(cache["pos"].max())
     full = lm.init_cache(cfg, B, S + extra, device=device)
     return {k: _embed_cache(full[k], cache[k]) for k in full}
 
@@ -4156,9 +4253,9 @@ def lm_run(params, batch, cfg, device, steps: int) -> dict:
             for k, v in out.items()}
 
 
-def lm_parity(device, archs=LM_PARITY_ARCHS, batch: int = LM_PARITY["batch"],
+def lm_parity(device, archs=LM_ATTN_ARCHS, batch: int = LM_PARITY["batch"],
               seq: int = LM_PARITY["seq"], steps: int = LM_PARITY["steps"]) -> dict:
-    """Phase 35. Each arch's smoke config in float32 (TF32 off): the port on
+    """Phases 35 and 38. Each arch's smoke config in float32 (TF32 off): the port on
     ``device`` against the port on the CPU, on the same weights and batch
     (drawn on the CPU, copied over): forward's h, the prefill logits and
     cache, one decode step's logits and cache within LM_ATOL (caches
@@ -4295,6 +4392,38 @@ def lm_conditioning(cfg, device, prompt: int = 128, *, full_fan_in: bool) -> dic
             "fp8": lm_fp8_vs_bf16(p16, cfg, device, **LM_FP8)}
 
 
+def lm_ssm_conditioning(cfg, device, recipe: tuple, prompt: int = 2048,
+                        batch: int = 1) -> dict:
+    """How ``cfg``'s random model reacts to rounding with the weights of
+    ``recipe`` (a tuple of "full_fan_in", "residual", "ssm_init", applied
+    in that order to ``init_params``' draw): bf16 against float32
+    last-token prefill logits of ``batch`` prompts of ``prompt`` tokens
+    (max and rms |delta| over the logits' std) and float32 decode against
+    forward at LM_SSM_CHECK. benchmarks/torch_lm_ssm_conditioning.py prints
+    it."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = lm_weights(c32, device, fan_in="full_fan_in" in recipe)
+    if "residual" in recipe:
+        residual_rescale(p32, cfg)
+    if "ssm_init" in recipe:
+        ssm_init(p32, cfg)
+    dvf, bad = lm_decode_vs_forward(p32, c32, device, **LM_SSM_CHECK)
+    b = lm_batch(cfg, batch, prompt, device)
+    with torch.inference_mode():
+        l32, _ = lm.prefill(p32, b, Ctx(c32, torch.device(device)))
+        p16 = lm_cast(p32, cfg)
+        del p32
+        l16, _ = lm.prefill(p16, b, Ctx(cfg, torch.device(device)))
+    d, sd = l16 - l32, l32.std().item()
+    return {"bf16_vs_f32_max_over_std": d.abs().max().item() / sd,
+            "bf16_vs_f32_rms_over_std": d.pow(2).mean().sqrt().item() / sd,
+            "bf16_vs_f32_argmax_equal": int((l16.argmax(-1) == l32.argmax(-1)).sum()),
+            "f32_decode_vs_forward_max_abs": dvf, "f32_decode_vs_forward_beyond_tol": bad}
+
+
 def lm_serve(device, cfg=None, batch: int = LM_SERVE["batch"],
              prompt: int = LM_SERVE["prompt"], gen: int = LM_SERVE["gen"]) -> dict:
     """Phase 36. qwen2-1.5b at full width and depth (``cfg`` overrides),
@@ -4311,20 +4440,13 @@ def lm_serve(device, cfg=None, batch: int = LM_SERVE["batch"],
         max |delta| <= LM_BF16_REL * std;
     (d) a float8_e4m3fn cache against bf16 under the reference's rule at
         LM_FP8's shape (gated), and at the served prompts (reported)."""
-    import statistics
-
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import lm
     from repro_torch.models.layers import Ctx
     from repro_torch.models.params import schema_n_params
-    from repro_torch.obs import clock
-    from repro_torch.serving.decode import (greedy_generate, make_decode_step,
-                                            make_prefill)
     cfg = cfg or get_arch(LM_SERVE["arch"])
     c32 = cfg.replace(dtype="float32", param_dtype="float32")
-    cuda = torch.device(device).type == "cuda"
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "params": schema_n_params(lm.model_schema(cfg))}
 
@@ -4344,6 +4466,73 @@ def lm_serve(device, cfg=None, batch: int = LM_SERVE["batch"],
         l32, _ = lm.prefill(p32, served, Ctx(c32, torch.device(device)))
     p16 = lm_cast(p32, cfg)
     del p32
+    served_out, l16 = lm_serve_bf16(p16, served, cfg, device, gen)
+    out["b_bfloat16_served"] = {**served_out,
+                                "bounds": lm_serve_bounds(cfg, batch, prompt, gen)}
+
+    out["c_bfloat16_vs_float32"] = lm_bf16_vs_f32(l16, l32, "lm_serve (c)")
+
+    fp8 = lm_fp8_vs_bf16(p16, cfg, device, **LM_FP8)
+    out["d_float8_cache"] = {"gated": fp8, "served_shape": lm_fp8_vs_bf16(
+        p16, cfg, device, batch=batch, prompt=prompt)}
+    if fp8["argmax_equal"] != fp8["batch"] or not fp8["max_abs_diff"] < LM_FP8_MAX:
+        raise AssertionError(f"lm_serve (d): the float8 cache fails the "
+                             f"reference's rule: {fp8}")
+    return out
+
+
+def lm_bf16_vs_f32(l16, l32, what: str) -> dict:
+    """bf16 against float32 last-token prefill logits: max |delta| over the
+    float32 logits' std, gated at LM_BF16_REL."""
+    d = l16 - l32
+    sd = l32.std().item()
+    rel = d.abs().max().item() / sd
+    if not rel <= LM_BF16_REL:
+        raise AssertionError(f"{what}: bf16 logits differ from float32 by "
+                             f"{rel} std (tolerance {LM_BF16_REL})")
+    return {"max_abs_diff": d.abs().max().item(), "logits_std": sd,
+            "max_over_std": rel, "rms_over_std": d.pow(2).mean().sqrt().item() / sd,
+            "argmax_equal": int((l16.argmax(-1) == l32.argmax(-1)).sum()),
+            "tol_over_std": LM_BF16_REL}
+
+
+def device_trace(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under torch.profiler on the card: the kernels'
+    busy ms (self time: an operator's kernels are its children), the
+    kernel launches, and the ``top`` operators and kernels by self device
+    ms (name, ms, count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return {"device_busy_ms": sum(getattr(e, "self_device_time_total", 0.0)
+                                  for e in events) / 1e3,
+            "kernel_launches": sum(e.count for e in events
+                                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                "cudaLaunchKernelExC")),
+            "top_device_ms": [
+                (e.key[:72], e.self_device_time_total / 1e3, e.count)
+                for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]]}
+
+
+def lm_serve_bf16(p16, served, cfg, device, gen: int) -> tuple:
+    """Phases 36 and 39 (b): ``greedy_generate`` of ``gen`` tokens after
+    ``served`` (seconds, tokens/s, peak memory), then the same through the
+    prefill and decode bundles with CUDA events (prefill s, decode ms a
+    token: the median step), their tokens equal to greedy_generate's; one
+    decode step traced (kernels a step, the card's busy time). Returns
+    (the report, the bundle's last-token prefill logits)."""
+    import statistics
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.obs import clock
+    from repro_torch.serving.decode import (greedy_generate, make_decode_step,
+                                            make_prefill)
+    cuda = torch.device(device).type == "cuda"
+    batch, prompt = served["tokens"].shape
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -4375,31 +4564,17 @@ def lm_serve(device, cfg=None, batch: int = LM_SERVE["batch"],
         step_s.append(t.seconds)
     mine = torch.cat(mine, 1)
     if not torch.equal(mine, tokens):
-        raise AssertionError("lm_serve (b): the bundles' tokens differ from "
+        raise AssertionError(f"{cfg.name}: the bundles' tokens differ from "
                              "greedy_generate's")
     if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-        raise AssertionError("lm_serve (b): a token out of the vocabulary")
+        raise AssertionError(f"{cfg.name}: a token out of the vocabulary")
     trace = {}
     if cuda:
-        from torch.profiler import ProfilerActivity, profile
         with torch.inference_mode():
             cache["pos"] -= 1            # decode the last slot again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(p16, {"token": tok}, cache)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        # self time: an operator's kernels are its children
-        trace = {"device_busy_ms": sum(getattr(e, "self_device_time_total", 0.0)
-                                       for e in events) / 1e3,
-                 "kernel_launches": sum(e.count for e in events
-                                        if e.key in ("cudaLaunchKernel",
-                                                     "cuLaunchKernel",
-                                                     "cudaLaunchKernelExC")),
-                 "top_device_ms": [
-                     (e.key[:72], e.self_device_time_total / 1e3, e.count)
-                     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]]}
+        trace = device_trace(lambda: step(p16, {"token": tok}, cache))
     decode_ms = 1e3 * statistics.median(step_s)
-    out["b_bfloat16_served"] = {
+    return {
         "batch": batch, "prompt": prompt, "generated": gen,
         "greedy_generate_s": gen_s,
         "tokens_per_s": batch * gen / gen_s,
@@ -4408,28 +4583,7 @@ def lm_serve(device, cfg=None, batch: int = LM_SERVE["batch"],
         "decode_ms_min": 1e3 * min(step_s), "decode_ms_max": 1e3 * max(step_s),
         "decode_tokens_per_s": batch / (decode_ms / 1e3),
         "peak_memory_bytes": peak, "decode_step_trace": trace,
-        "bounds": lm_serve_bounds(cfg, batch, prompt, gen),
-        "sample_tokens": tokens[0, :8].tolist()}
-
-    d = l16 - l32
-    sd = l32.std().item()
-    rel = d.abs().max().item() / sd
-    out["c_bfloat16_vs_float32"] = {
-        "max_abs_diff": d.abs().max().item(), "logits_std": sd,
-        "max_over_std": rel, "rms_over_std": d.pow(2).mean().sqrt().item() / sd,
-        "argmax_equal": int((l16.argmax(-1) == l32.argmax(-1)).sum()),
-        "tol_over_std": LM_BF16_REL}
-    if not rel <= LM_BF16_REL:
-        raise AssertionError(f"lm_serve (c): bf16 logits differ from float32 "
-                             f"by {rel} std (tolerance {LM_BF16_REL})")
-
-    fp8 = lm_fp8_vs_bf16(p16, cfg, device, **LM_FP8)
-    out["d_float8_cache"] = {"gated": fp8, "served_shape": lm_fp8_vs_bf16(
-        p16, cfg, device, batch=batch, prompt=prompt)}
-    if fp8["argmax_equal"] != fp8["batch"] or not fp8["max_abs_diff"] < LM_FP8_MAX:
-        raise AssertionError(f"lm_serve (d): the float8 cache fails the "
-                             f"reference's rule: {fp8}")
-    return out
+        "sample_tokens": tokens[0, :8].tolist()}, l16
 
 
 def lm_serve_bounds(cfg, batch: int, prompt: int, gen: int) -> dict:
@@ -4525,8 +4679,437 @@ def lm_families(device, archs=LM_FAMILIES, layers: int = LM_FAMILY["layers"],
     return out
 
 
+def lm_ssm_weights(cfg, device, seed: int = SEED) -> dict:
+    """float32 weights of the hybrid and ssm families as phase 39 serves
+    them: ``lm_weights`` (the attention projections at full fan-in) with
+    the residual branches rescaled (``residual_rescale``) and the decay
+    parameters at their published inits (``ssm_init``). The reference's
+    draw compounds rounding through depth (PERF.md §6,
+    benchmarks/torch_lm_ssm_conditioning.py)."""
+    return ssm_init(residual_rescale(lm_weights(cfg, device, seed), cfg), cfg, seed)
+
+
+def _bf16_vs_f32_at(cfg, device, batch: int, prompt: int, what: str) -> dict:
+    """``lm_bf16_vs_f32`` on ``lm_ssm_weights(cfg)`` at the served shape."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = lm_ssm_weights(c32, device)
+    b = lm_batch(cfg, batch, prompt, device)
+    with torch.inference_mode():
+        l32, _ = lm.prefill(p32, b, Ctx(c32, torch.device(device)))
+        p16 = lm_cast(p32, cfg)
+        del p32
+        l16, _ = lm.prefill(p16, b, Ctx(cfg, torch.device(device)))
+    return lm_bf16_vs_f32(l16, l32, what)
+
+
+def lm_ssm_serve(device, archs=LM_SSM_ARCHS, batch: int = LM_SSM_SERVE["batch"],
+                 prompt: int = LM_SSM_SERVE["prompt"], gen: int = LM_SSM_SERVE["gen"],
+                 check: dict = LM_SSM_CHECK, width=None) -> dict:
+    """Phase 39. Each arch at full width and depth (``width`` overrides: a
+    function of the config, for the CPU rehearsal), weights from SEED
+    through ``lm_ssm_weights``:
+    (a) float32 decode against forward after ``check["prompt"]`` tokens
+        (gated at LM_DECODE_TOL; the reference's draw reported beside);
+    (c) float32 prefill logits of ``batch`` prompts of ``prompt`` tokens;
+    (b) bf16: ``lm_serve_bf16`` of ``gen`` tokens, beside
+        ``lm_ssm_serve_bounds``; bf16 against (c)'s logits, gated at
+        LM_BF16_REL at the depth LM_SSM_BF16_DEPTH names (full depth
+        otherwise) and reported at full depth."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import schema_n_params
+    from repro_torch.obs import clock
+    out = {}
+    for name in archs:
+        t0 = clock.perf()
+        cfg = get_arch(name)
+        if width is not None:
+            cfg = width(cfg)
+        c32 = cfg.replace(dtype="float32", param_dtype="float32")
+        row = {"family": cfg.family, "layers": cfg.n_layers, "d_model": cfg.d_model,
+               "params": schema_n_params(lm.model_schema(cfg))}
+        raw = lm_weights(c32, device, fan_in=False)
+        row["a_init_params"] = dict(zip(("max_abs_diff", "beyond_tol"),
+                                        lm_decode_vs_forward(raw, c32, device, **check)))
+        del raw
+        p32 = lm_ssm_weights(c32, device)
+        dvf, bad = lm_decode_vs_forward(p32, c32, device, **check)
+        if bad:
+            raise AssertionError(f"lm_ssm_serve {name} (a): float32 decode != "
+                                 f"forward: max |delta| {dvf}, {bad} logits past "
+                                 f"{LM_DECODE_TOL}")
+        row["a_float32_decode_vs_forward"] = {"max_abs_diff": dvf, "tol": LM_DECODE_TOL,
+                                              **check}
+        served = lm_batch(cfg, batch, prompt, device)
+        with torch.inference_mode():
+            l32, _ = lm.prefill(p32, served, Ctx(c32, torch.device(device)))
+        p16 = lm_cast(p32, cfg)
+        del p32
+        served_out, l16 = lm_serve_bf16(p16, served, cfg, device, gen)
+        row["b_bfloat16_served"] = {**served_out,
+                                    "bounds": lm_ssm_serve_bounds(cfg, batch, prompt, gen)}
+        del p16
+        depth = min(LM_SSM_BF16_DEPTH.get(name, cfg.n_layers), cfg.n_layers)
+        what = f"lm_ssm_serve {name} (c)"
+        if depth == cfg.n_layers:
+            row["c_bfloat16_vs_float32"] = lm_bf16_vs_f32(l16, l32, what)
+        else:
+            d, sd = l16 - l32, l32.std().item()
+            row["c_bfloat16_vs_float32_full_depth"] = {
+                "max_over_std": d.abs().max().item() / sd,
+                "rms_over_std": d.pow(2).mean().sqrt().item() / sd,
+                "argmax_equal": int((l16.argmax(-1) == l32.argmax(-1)).sum())}
+            row["c_bfloat16_vs_float32"] = {"layers": depth, **_bf16_vs_f32_at(
+                cfg.replace(n_layers=depth), device, batch, prompt, what)}
+        row["seconds"] = clock.perf() - t0
+        out[name] = row
+        del l16, l32
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_scan_flops(cfg, batch: int, seq: int) -> int:
+    """float32 products of the chunked scans over ``seq`` tokens, every
+    layer (2 per multiply-add; the intra-chunk terms over the causal half
+    only, what the data needs): Mamba2's carried-state read and update,
+    C B^T and the decayed (C B^T) x; RWKV6's state read and update and
+    its intra-chunk r (A k) v."""
+    from repro_torch.models.layers import largest_divisor_leq
+    Bz = batch
+    if cfg.family == "hybrid":
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        Q = largest_divisor_leq(seq, cfg.ssm_chunk)
+        tri = Q * (Q + 1) // 2
+        chunk = 2 * (2 * Bz * Q * N * H * P) + 2 * Bz * N * tri + 2 * Bz * H * P * tri
+    else:
+        H = cfg.d_model // cfg.rwkv_head_dim
+        C = cfg.rwkv_head_dim
+        Q = largest_divisor_leq(seq, cfg.rwkv_chunk)
+        tri = Q * (Q - 1) // 2
+        chunk = 2 * (2 * Bz * Q * H * C * C) + 3 * Bz * H * C * tri + 2 * Bz * H * C * tri
+    return cfg.n_layers * (seq // Q) * chunk
+
+
+def lm_ssm_serve_bounds(cfg, batch: int, prompt: int, gen: int) -> dict:
+    """The least time the card could take (published H100 peaks) for the
+    hybrid and ssm families. A decode step reads every weight once (the
+    unembedding whole; an untied token table only the batch's rows), reads
+    and writes every recurrent state once (conv and ssm, or the shifts and
+    wkv) and, for zamba2, reads the shared block's KV cache up to its mean
+    position. Prefill does 2 bf16 FLOPs per weight per token (the shared
+    block's weights once per use; the unembedding for the last token
+    only), plus in float32 the chunked scans' products
+    (``_ssm_scan_flops``) and the shared block's causal attention; it
+    writes the states and caches once."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves, torch_dtype
+    schema = lm.model_schema(cfg)
+
+    def size(s):
+        return int(np.prod(s.shape))
+
+    def nbytes(s):
+        return size(s) * torch_dtype(s.dtype or cfg.param_dtype).itemsize
+
+    specs = leaves(schema)
+    V, D = cfg.vocab_size, cfg.d_model
+    table = schema["embed"]["tokens"]
+    item = torch_dtype(cfg.param_dtype).itemsize
+    weight_bytes = sum(nbytes(s) for _, s in specs)
+    if not cfg.tie_embeddings:              # a lookup reads the batch's rows
+        weight_bytes += batch * D * item - nbytes(table)
+    cache = lm.cache_spec(cfg, batch, prompt + gen)
+    state_bytes = sum(t.numel() * t.element_size() for k, t in cache.items()
+                      if k in ("conv", "ssm", "tshift", "wkv", "cshift"))
+    kv_item = torch_dtype(cfg.kv_cache_dtype or cfg.dtype).itemsize
+    G = cache["k"].shape[0] if "k" in cache else 0
+    KV, Dh, H = cfg.n_kv_heads, cfg.resolved_head_dim(), cfg.n_heads
+    kv_read = 2 * G * batch * (prompt + gen / 2) * KV * Dh * kv_item
+    decode_bytes = weight_bytes + 2 * state_bytes + kv_read
+    decode_ms = 1e3 * decode_bytes / H100_BYTES_PER_S
+
+    T = batch * prompt
+    n_all = sum(size(s) for _, s in specs)
+    lookup = V * D if cfg.tie_embeddings else 2 * V * D   # the table(s)
+    shared = sum(size(s) for _, s in leaves(schema.get("shared", {})))
+    bf16_flops = 2 * (n_all - lookup + max(G - 1, 0) * shared) * T + 2 * V * D * batch
+    attn_flops = 2 * 2 * G * batch * H * Dh * prompt * (prompt + 1) / 2
+    f32_flops = _ssm_scan_flops(cfg, batch, prompt) + attn_flops
+    prefill_ops_ms = 1e3 * (bf16_flops / H100_BF16_FLOPS + f32_flops / H100_F32_FLOPS)
+    prefill_bytes = weight_bytes + state_bytes + 2 * G * batch * prompt * KV * Dh * kv_item
+    prefill_bytes_ms = 1e3 * prefill_bytes / H100_BYTES_PER_S
+    return {"decode_step_bytes": decode_bytes, "weight_bytes": weight_bytes,
+            "state_bytes_read_and_written": 2 * state_bytes, "kv_bytes_read": kv_read,
+            "decode_ms": decode_ms, "decode_by": "bytes",
+            "prefill_bf16_flops": bf16_flops, "prefill_f32_flops": f32_flops,
+            "prefill_ms": max(prefill_ops_ms, prefill_bytes_ms),
+            "prefill_by": "operations" if prefill_ops_ms >= prefill_bytes_ms else "bytes"}
+
+
+def lm_train_bound(cfg, batch: int, seq: int) -> dict:
+    """The least time the card could take (published H100 peaks) for one
+    train step under remat "full": every layer's forward runs twice and
+    the backward costs two forwards, so 2 x 4 FLOPs per matmul weight per
+    token in bf16 (the tied token table as the unembedding, its lookup
+    free), and 4 times the causal attention's QK and PV products in
+    float32 (the port upcasts them). Bytes: the AdamW update reads the
+    params, gradients and both slots and writes params and slots, and the
+    three passes read the weights."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves, torch_dtype
+    specs = leaves(lm.model_schema(cfg))
+    n = sum(int(np.prod(s.shape)) for _, s in specs)
+    p_bytes = sum(int(np.prod(s.shape)) * torch_dtype(s.dtype or cfg.param_dtype).itemsize
+                  for _, s in specs)
+    n_mm = n if cfg.tie_embeddings else n - cfg.vocab_size * cfg.d_model
+    T = batch * seq
+    bf16_flops = 2 * 4 * n_mm * T
+    L, H, Dh = cfg.n_layers, cfg.n_heads, cfg.resolved_head_dim()
+    f32_flops = 4 * 2 * 2 * L * batch * H * Dh * seq * (seq + 1) / 2
+    ops_s = bf16_flops / H100_BF16_FLOPS + f32_flops / H100_F32_FLOPS
+    step_bytes = 3 * p_bytes + (2 * p_bytes + p_bytes) + 2 * 2 * 4 * n
+    bytes_s = step_bytes / H100_BYTES_PER_S
+    return {"params": n, "tokens": T, "bf16_flops": bf16_flops, "f32_flops": f32_flops,
+            "bytes": step_bytes, "step_s": max(ops_s, bytes_s),
+            "by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def _lm_finite(tree) -> bool:
+    import torch
+    from repro_torch.models.params import leaves
+    return all(bool(torch.isfinite(t).all()) for _, t in leaves(tree))
+
+
+def lm_train(device, cfg=None, batch: int = LM_TRAIN["batch"], seq: int = LM_TRAIN["seq"],
+             steps: int = LM_TRAIN["steps"]) -> dict:
+    """Phase 40 (a). qwen2-1.5b at full width and depth (``cfg``
+    overrides), the config's bf16 params, AdamW, remat "full": ``steps``
+    steps of ``batch`` x ``seq`` tokens of the synthetic stream through
+    ``make_train_step``, each timed with CUDA events (the first apart:
+    first-use costs), then one more traced (``device_trace``); loss and
+    grad norm finite. The state is
+    ``init_train_state``'s with the attention projections at full fan-in
+    (``full_fan_in``): the reference's draw makes the gradients grow
+    ~10x a layer (the reference's own too), past float32's range at 28
+    layers; one step on it is reported beside."""
+    import math
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm_data import batch_at
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = cfg or get_arch(LM_TRAIN["arch"])
+    cuda = torch.device(device).type == "cuda"
+    shape = ShapeConfig("train", "train", seq, batch)
+    step_fn = make_train_step(cfg, shape, device=device).jitted()
+
+    def fresh():
+        return init_train_state(torch.Generator(device=device).manual_seed(SEED), cfg,
+                                device=device)
+
+    state = fresh()
+    _, m = step_fn(state, batch_at(cfg, shape, 0, seed=SEED, device=device))
+    drawn = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+    del state, m
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    state = fresh()
+    full_fan_in(state["params"], cfg)
+    seconds, losses, norms = [], [], []
+    for i in range(steps):
+        b = batch_at(cfg, shape, i, seed=SEED, device=device)
+        with _Timer(device) as t:
+            state, m = step_fn(state, b)
+        seconds.append(t.seconds)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    trace = {}
+    if cuda:                             # one more step, traced
+        b = batch_at(cfg, shape, steps, seed=SEED, device=device)
+        trace = device_trace(lambda: step_fn(state, b), top=12)
+    if not all(math.isfinite(v) for v in losses + norms) or not _lm_finite(state["params"]):
+        raise AssertionError(f"lm_train (a): non-finite loss, grad norm or params: "
+                             f"{losses}, {norms}")
+    steady = statistics.median(seconds[1:] if steps > 1 else seconds)
+    bound = lm_train_bound(cfg, batch, seq)
+    return {"arch": cfg.name, "layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
+            "optimizer": cfg.optimizer, "remat": cfg.remat, "batch": batch, "seq": seq,
+            "steps": steps, "first_step_s": seconds[0], "step_s_median": steady,
+            "step_s_min": min(seconds), "step_s_max": max(seconds),
+            "tokens_per_s": batch * seq / steady,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+            "losses": losses, "grad_norms": norms, "bound": bound,
+            "bound_share": bound["step_s"] / steady, "init_params_first_step": drawn,
+            "step_trace": trace}
+
+
+def lm_train_resume(device, scratch: str, cfg=None, batch: int = LM_TRAIN_RESUME["batch"],
+                    seq: int = LM_TRAIN_RESUME["seq"], steps: int = LM_TRAIN_RESUME["steps"],
+                    split: int = LM_TRAIN_RESUME["split"]) -> dict:
+    """Phase 40 (b). ``train_loop`` at qwen2-1.5b's width cut to
+    LM_TRAIN_RESUME["layers"] layers (``cfg`` overrides): ``split`` steps,
+    a restart that resumes from the checkpoint, and on to ``steps``,
+    against ``steps`` straight steps: every leaf of the final states equal
+    bit for bit. Then the final checkpoint's bytes, a synchronous save of
+    the state (from the device) and a restore to the device, timed; and
+    one step run twice from the same restored state (equal if the step is
+    deterministic)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm_data import batch_at
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.models.params import leaves
+    from repro_torch.obs import clock
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import LoopConfig, train_loop
+    cfg = cfg or get_arch(LM_TRAIN["arch"]).replace(n_layers=LM_TRAIN_RESUME["layers"])
+    shape = ShapeConfig("resume", "train", seq, batch)
+    straight, resumed = os.path.join(scratch, "straight"), os.path.join(scratch, "resumed")
+
+    def run(path, total):
+        return train_loop(cfg, shape, path, LoopConfig(
+            total_steps=total, ckpt_every=total, log_every=total, seed=SEED),
+            device=device, log=lambda *a: None)
+
+    t0 = clock.perf()
+    out_a = run(straight, steps)
+    straight_s = clock.perf() - t0
+    run(resumed, split)
+    out_b = run(resumed, steps)
+    if out_a["final_step"] != steps or out_b["final_step"] != steps:
+        raise AssertionError(f"lm_train (b): stopped at {out_a['final_step']} and "
+                             f"{out_b['final_step']}, not {steps}")
+    mgr = CheckpointManager(straight)
+    t0 = clock.perf()
+    sa, _ = mgr.restore(steps, device=device)
+    _lm_sync(device)
+    restore_s = clock.perf() - t0
+    sb, _ = CheckpointManager(resumed).restore(steps, device=device)
+    differ = {"/".join(p): (a.float() - b.float()).abs().max().item()
+              for (p, a), (_, b) in zip(leaves(sa), leaves(sb)) if not torch.equal(a, b)}
+    t0 = clock.perf()
+    timed = CheckpointManager(os.path.join(scratch, "timed")).save(steps, sa)
+    save_s = clock.perf() - t0
+    # the step's own determinism: one step twice from the split's state
+    step_fn = make_train_step(cfg, shape, device=device).jitted()
+    b = batch_at(cfg, shape, split, seed=SEED, device=device)
+    twice = []
+    for _ in range(2):
+        s0, _ = CheckpointManager(resumed).restore(split, device=device)
+        twice.append(step_fn(s0, b)[0])
+    step_repeats = all(torch.equal(x, y) for (_, x), (_, y) in
+                       zip(leaves(twice[0]), leaves(twice[1])))
+    row = {"layers": cfg.n_layers, "d_model": cfg.d_model, "batch": batch, "seq": seq,
+           "steps": steps, "split": split, "bit_equal": not differ,
+           "leaves_differing": differ, "step_repeats": step_repeats,
+           "straight_loop_s": straight_s, "checkpoint_bytes": dir_bytes(timed),
+           "save_s": save_s, "restore_s": restore_s,
+           "losses": {"straight": out_a["losses"], "resumed": out_b["losses"]}}
+    if differ:
+        raise AssertionError(f"lm_train (b): the resumed run differs from the "
+                             f"straight one: {row}")
+    return row
+
+
+def lm_train_ssm(device, archs=LM_SSM_ARCHS, batch: int = LM_TRAIN_SSM["batch"],
+                 seq: int = LM_TRAIN_SSM["seq"], width=None) -> dict:
+    """Phase 40 (c). zamba2 at full width cut to one group (6 Mamba2 layers
+    and the shared block) and rwkv6 cut to 2 layers (LM_TRAIN_SSM), the
+    configs' bf16 params and chunks (256, 128), ``batch`` x ``seq``
+    tokens: one step, the loss, the grad norm (non-finite if any gradient
+    is) and every updated param finite. ``width`` overrides the config
+    (the CPU rehearsal)."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm_data import batch_at
+    from repro_torch.train import init_train_state, make_train_step
+    cuda = torch.device(device).type == "cuda"
+    shape = ShapeConfig("train", "train", seq, batch)
+    out = {}
+    for name in archs:
+        cfg = get_arch(name).replace(n_layers=LM_TRAIN_SSM["layers"][name])
+        if width is not None:
+            cfg = width(cfg)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        state = init_train_state(torch.Generator(device=device).manual_seed(SEED), cfg,
+                                 device=device)
+        with _Timer(device) as t:
+            state, m = make_train_step(cfg, shape, device=device).jitted()(
+                state, batch_at(cfg, shape, 0, seed=SEED, device=device))
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        finite = math.isfinite(loss) and math.isfinite(norm) and _lm_finite(state["params"])
+        if not finite:
+            raise AssertionError(f"lm_train (c) {name}: loss {loss}, grad norm {norm}, "
+                                 "or a param is not finite")
+        out[name] = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "chunk": cfg.ssm_chunk if cfg.family == "hybrid" else cfg.rwkv_chunk,
+                     "batch": batch, "seq": seq, "loss": loss, "grad_norm": norm,
+                     "step_s": t.seconds,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(device)
+                     if cuda else None}
+        del state
+    return out
+
+
+def lm_train_parity(device, archs=LM_PARITY_ARCHS, batch: int = LM_TRAIN_PARITY["batch"],
+                    seq: int = LM_TRAIN_PARITY["seq"]) -> dict:
+    """Phase 40 (d). Each arch's smoke config in float32 (TF32 off), one
+    train step from the same state (``init_train_state`` on the CPU, the
+    attention projections at full fan-in, as ``lm_parity``) and batch: the
+    card's loss within LM_TRAIN_LOSS_REL and grad norm within
+    LM_TRAIN_GNORM_REL of the CPU's (relative); the params' largest
+    difference reported."""
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves
+    from repro_torch.train import init_train_state, make_train_step
+    shape = ShapeConfig("train", "train", seq, batch)
+    out = {}
+    for name in archs:
+        cfg = smoke_config(get_arch(name))
+        runs = {}
+        for where in ("cpu", device):
+            state = init_train_state(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+            full_fan_in(state["params"], cfg)
+            state = _lm_tree_map(lambda t: t.to(where), state)
+            b = lm.make_batch(torch.Generator().manual_seed(SEED + 1), cfg, shape,
+                              device="cpu")
+            new, m = make_train_step(cfg, shape, device=where).jitted()(
+                state, {k: v.to(where) for k, v in b.items()})
+            runs[str(where)] = (_lm_tree_map(lambda t: t.cpu(), new["params"]),
+                                m["loss"].item(), m["grad_norm"].item())
+        (p_cpu, l_cpu, g_cpu), (p_dev, l_dev, g_dev) = runs["cpu"], runs[str(device)]
+        row = {"loss_rel": abs(l_dev - l_cpu) / abs(l_cpu),
+               "grad_norm_rel": abs(g_dev - g_cpu) / abs(g_cpu),
+               "params_max_abs_diff": max((a - b).abs().max().item() for (_, a), (_, b)
+                                          in zip(leaves(p_dev), leaves(p_cpu))),
+               "loss": l_cpu, "grad_norm": g_cpu}
+        if not (row["loss_rel"] <= LM_TRAIN_LOSS_REL
+                and row["grad_norm_rel"] <= LM_TRAIN_GNORM_REL):
+            raise AssertionError(f"lm_train (d) {name}: card against CPU {row}")
+        out[name] = row
+    return out
+
+
 def lm_phases(device, card: str) -> dict:
-    """Phases 35-37 (ROADMAP A9): float32 without TF32 where the checks
+    """Phases 35-40 (ROADMAP A9): float32 without TF32 where the checks
     hold float32; none of B1-B4 launches (their counts do not move)."""
     import torch
     from repro_torch.kernels.forest_infer import forest_infer
@@ -4552,6 +5135,30 @@ def lm_phases(device, card: str) -> dict:
     seconds["lm_families"] = clock.perf() - t0
     emit(phase="lm_families", card=card, archs=families,
          seconds=seconds["lm_families"])
+    t0 = clock.perf()
+    ssm_parity = lm_parity(device, archs=LM_SSM_ARCHS)
+    seconds["lm_ssm_parity"] = clock.perf() - t0
+    emit(phase="lm_ssm_parity", card=card, archs=ssm_parity,
+         seconds=seconds["lm_ssm_parity"])
+    t0 = clock.perf()
+    ssm_served = lm_ssm_serve(device)
+    seconds["lm_ssm_serve"] = clock.perf() - t0
+    emit(phase="lm_ssm_serve", card=card, archs=ssm_served,
+         seconds=seconds["lm_ssm_serve"])
+    t0 = clock.perf()
+    trained = {"a_full_depth": lm_train(device)}
+    torch.cuda.empty_cache()
+    scratch = scratch_dir()
+    try:
+        trained["b_resume"] = lm_train_resume(device, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    torch.cuda.empty_cache()
+    trained["c_ssm_step"] = lm_train_ssm(device)
+    torch.cuda.empty_cache()
+    trained["d_card_vs_cpu"] = lm_train_parity(device)
+    seconds["lm_train"] = clock.perf() - t0
+    emit(phase="lm_train", card=card, **trained, seconds=seconds["lm_train"])
     if counts() != before:
         raise AssertionError(f"the LM phases launched a B1-B4 kernel: "
                              f"{before} -> {counts()}")
@@ -4842,7 +5449,7 @@ def main() -> int:
              seconds=clock.perf() - t0)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    # the LM stack's serving path (ROADMAP A9): phases 35-37
+    # the LM stack (ROADMAP A9): serving, phases 35-39, and training, 40
     lm_phases(device, card)
 
     a7_hist = {"train_distributed": {

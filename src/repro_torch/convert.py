@@ -258,6 +258,40 @@ def lm_params_from_arrays(cfg, tree: dict, *, device=None, dtype=None) -> dict:
     return _nest(out)
 
 
+def lm_train_state_from_arrays(cfg, tree: dict, *, device=None, dtype=None) -> dict:
+    """The port's train state ({"params", "slots", "step"}) for ``cfg`` from
+    the reference's, given as numpy arrays. The params go through
+    ``lm_params_from_arrays`` (``dtype`` as there); every slot must match
+    ``opt_slot_specs``' paths and shapes and becomes float32; the step an
+    int32 scalar. On ``device`` (None is cuda)."""
+    import torch
+
+    from repro_torch.core.engines import resolve_device
+    from repro_torch.models.params import leaves
+    from repro_torch.train.step import train_state_specs
+    dev = resolve_device(device)
+    if set(tree) != {"params", "slots", "step"}:
+        raise YdfError(f"a train state has params, slots and step; got {sorted(tree)}")
+    params = lm_params_from_arrays(cfg, tree["params"], device=dev, dtype=dtype)
+    specs, _ = train_state_specs(cfg)
+    want = dict(leaves(specs["slots"]))
+    got = dict(leaves(tree["slots"]))
+    if set(want) != set(got):
+        missing = sorted(".".join(p) for p in set(want) - set(got))
+        extra = sorted(".".join(p) for p in set(got) - set(want))
+        raise YdfError(f"{cfg.name}: the slots do not match the optimizer's "
+                       f"({cfg.optimizer}): missing {missing}, extra {extra}")
+    slots = {}
+    for path, spec in want.items():
+        a = np.asarray(got[path], np.float32)
+        if tuple(a.shape) != tuple(spec.shape):
+            raise YdfError(f"{cfg.name}: slot {'.'.join(path)} has shape "
+                           f"{a.shape}, the optimizer's is {tuple(spec.shape)}")
+        slots[path] = torch.tensor(a, dtype=torch.float32, device=dev)
+    step = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=dev)
+    return {"params": params, "slots": _nest(slots), "step": step}
+
+
 def _nest(flat: dict) -> dict:
     out: dict = {}
     for path, v in flat.items():

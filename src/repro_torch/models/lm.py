@@ -1,29 +1,31 @@
-"""Model assembly for the attention families (dense / moe / vlm / audio).
+"""Model assembly for every family (dense / moe / vlm / audio / hybrid / ssm).
 
 The same interface as the reference's ``repro.models.lm``:
 
   * ``model_schema(cfg)``     — nested ParamSpec tree (init + meta shapes + axes)
   * ``forward(params, batch, ctx)``            — final hidden states (train/prefill)
-  * ``loss_fn(params, batch, ctx)``            — chunked CE loss (+ MoE aux), forward only
+  * ``loss_fn(params, batch, ctx)``            — chunked CE loss (+ MoE aux)
   * ``init_cache / cache_spec / cache_axes``  — decode caches per family
   * ``prefill(params, batch, ctx)``            — forward + cache population
   * ``decode_step(params, batch, cache, ctx)`` — one-token serving step
 
 Params are plain nested dicts of tensors; layers are stacked on a leading
-'layers' dim and applied by a Python loop over it (``remat`` is a training
-setting and has no effect here). The decode cache is updated in place.
-The hybrid (zamba2) and ssm (rwkv6) families need ``models/ssm.py``, which
-is not ported yet (ROADMAP A9.2): their entry points raise ``YdfError``.
+'layers' dim and applied by a Python loop over it. While autograd records,
+each layer body runs under ``cfg.remat`` (``torch.utils.checkpoint``);
+serving runs without it. The decode cache is updated in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.api import YdfError
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     attention_schema,
     decode_attention,
@@ -54,19 +56,13 @@ from repro_torch.models.params import (
     torch_dtype,
 )
 
-ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
 
 def _check_family(cfg: ModelConfig) -> str:
-    fam = cfg.family
-    if fam in ("hybrid", "ssm"):
-        raise YdfError(
-            f"{cfg.name}: the {fam} family needs models/ssm.py (Mamba2, "
-            "RWKV6), which the port does not have yet (ROADMAP A9.2). The "
-            f"port runs the attention families {', '.join(ATTN_FAMILIES)}.")
-    if fam not in ATTN_FAMILIES:
-        raise ValueError(fam)
-    return fam
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+    return cfg.family
 
 
 # =====================================================================
@@ -108,16 +104,46 @@ def _whisper_dec_block_schema(cfg: ModelConfig) -> Schema:
     }
 
 
+def _zamba_groups(cfg: ModelConfig) -> tuple[int, int]:
+    per = cfg.attn_every
+    if not per or cfg.n_layers % per:
+        raise YdfError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple "
+                       f"of attn_every {per}")
+    return cfg.n_layers // per, per
+
+
 def model_schema(cfg: ModelConfig) -> Schema:
     fam = _check_family(cfg)
     sch: Schema = {"embed": embed_schema(cfg)}
     if fam in ("dense", "moe", "vlm"):
         sch["layers"] = stack_layers(cfg.n_layers, _attn_mlp_block_schema(cfg))
         sch["final_norm"] = rmsnorm_schema(cfg.d_model)
-    else:  # audio
+    elif fam == "audio":
         sch["enc_layers"] = stack_layers(cfg.n_enc_layers, _whisper_enc_block_schema(cfg))
         sch["enc_norm"] = layernorm_schema(cfg.d_model)
         sch["dec_layers"] = stack_layers(cfg.n_layers, _whisper_dec_block_schema(cfg))
+        sch["final_norm"] = layernorm_schema(cfg.d_model)
+    elif fam == "hybrid":
+        G, per = _zamba_groups(cfg)
+        mamba = {"ln": rmsnorm_schema(cfg.d_model), "m": ssm_mod.mamba2_schema(cfg)}
+        sch["mamba"] = stack_layers(G, stack_layers(per, mamba))
+        sch["shared"] = {  # ONE weight set, invoked G times
+            "ln1": rmsnorm_schema(cfg.d_model),
+            "attn": attention_schema(cfg),
+            "ln2": rmsnorm_schema(cfg.d_model),
+            "mlp": mlp_schema(cfg),
+        }
+        sch["final_norm"] = rmsnorm_schema(cfg.d_model)
+    else:  # ssm
+        rwkv = ssm_mod.rwkv6_schema(cfg)
+        block = {
+            "ln1": layernorm_schema(cfg.d_model),
+            "time": rwkv["time"],
+            "ln2": layernorm_schema(cfg.d_model),
+            "channel": rwkv["channel"],
+        }
+        sch["ln0"] = layernorm_schema(cfg.d_model)
+        sch["layers"] = stack_layers(cfg.n_layers, block)
         sch["final_norm"] = layernorm_schema(cfg.d_model)
     return sch
 
@@ -163,12 +189,55 @@ def _n_layers(stacked) -> int:
     return leaves(stacked)[0][1].shape[0]
 
 
-def _scan(body, carry, stacked):
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of matmuls without batch dims (jax's
+    ``dots_with_no_batch_dims_saveable``), recompute everything else."""
+    pol = torch_checkpoint.CheckpointPolicy
+    return pol.MUST_SAVE if op in _MATMULS else pol.PREFER_RECOMPUTE
+
+
+def _remat(body, remat: str):
+    """``body`` under the config's rematerialization while autograd records:
+    "full" saves only each call's inputs, "dots" also the matmul outputs,
+    "none" everything."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    if remat == "full":
+        return functools.partial(torch_checkpoint.checkpoint, body,
+                                 use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            torch_checkpoint.checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _save_matmuls))
+    raise ValueError(remat)
+
+
+def _unstack(stacked) -> list:
+    """The per-layer param trees of ``stacked``, one ``unbind`` per leaf (a
+    view each; under autograd the layers' gradients stack into the leaf's
+    in one pass, where indexing layer by layer would add a full-size zero
+    tensor per layer)."""
+    if isinstance(stacked, dict):
+        per_key = {k: _unstack(v) for k, v in stacked.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(stacked.unbind(0))
+
+
+def _scan(body, carry, stacked, remat: str = "none"):
     """Apply ``body(carry, layer_params) -> (carry, y)`` over the leading
-    'layers' dim of ``stacked``; returns (carry, [y per layer])."""
+    'layers' dim of ``stacked`` (under ``remat``, see ``_remat``); returns
+    (carry, [y per layer])."""
+    body = _remat(body, remat)
     ys = []
-    for i in range(_n_layers(stacked)):
-        carry, y = body(carry, _layer(stacked, i))
+    for p in _unstack(stacked):
+        carry, y = body(carry, p)
         ys.append(y)
     return carry, ys
 
@@ -196,6 +265,8 @@ def _embed_inputs(params, batch, ctx: Ctx):
     B, S = x.shape[0], x.shape[1]
     if cfg.family == "audio":
         x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
+    if cfg.family == "ssm":
+        x = layernorm(params["ln0"], x, cfg.norm_eps)
     return x, _positions(B, S, x.device), None
 
 
@@ -221,7 +292,7 @@ def _whisper_encode(params, frames, ctx: Ctx):
         x = x + mlp(p["mlp"], layernorm(p["ln2"], x, cfg.norm_eps), ctx)
         return x, None
 
-    x, _ = _scan(body, x, params["enc_layers"])
+    x, _ = _scan(body, x, params["enc_layers"], cfg.remat)
     return layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -231,8 +302,13 @@ def forward(params, batch, ctx: Ctx, *, return_cache: bool = False):
     cache (when return_cache) is the same structure ``decode_step`` consumes,
     with entries valid for positions [0, S).
     """
-    if _check_family(ctx.cfg) == "audio":
+    fam = _check_family(ctx.cfg)
+    if fam == "audio":
         return _forward_whisper(params, batch, ctx, return_cache)
+    if fam == "hybrid":
+        return _forward_zamba(params, batch, ctx, return_cache)
+    if fam == "ssm":
+        return _forward_rwkv(params, batch, ctx, return_cache)
     return _forward_attn(params, batch, ctx, return_cache)
 
 
@@ -244,7 +320,7 @@ def _forward_attn(params, batch, ctx: Ctx, return_cache: bool):
         x, (_, k, v, aux) = _attn_mlp_block(p, x, ctx, pos, prefix_len=prefix)
         return x, ((k, v) if return_cache else None, aux)
 
-    x, ys = _scan(body, x, params["layers"])
+    x, ys = _scan(body, x, params["layers"], cfg.remat)
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = (torch.stack([y[1] for y in ys]).sum() if cfg.n_experts
            else torch.zeros((), dtype=torch.float32, device=x.device))
@@ -278,12 +354,72 @@ def _forward_whisper(params, batch, ctx: Ctx, return_cache: bool):
         x = x + mlp(p["mlp"], layernorm(p["ln3"], x, cfg.norm_eps), ctx)
         return x, ((k, v, ck, cv) if return_cache else None)
 
-    x, ys = _scan(body, x, params["dec_layers"])
+    x, ys = _scan(body, x, params["dec_layers"], cfg.remat)
     h = layernorm(params["final_norm"], x, cfg.norm_eps)
     cache = None
     if return_cache:
         cache = {name: torch.stack([y[j] for y in ys])
                  for j, name in enumerate(("k", "v", "xk", "xv"))}
+        cache["pos"] = _full_pos(x)
+    return h, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _shared_attn_block(p, x, ctx: Ctx, pos):
+    cfg = ctx.cfg
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = qkv_project(p["attn"], h, h, ctx, pos, pos)
+    x = x + out_project(p["attn"], flash_attention(q, k, v, pos, pos, ctx, causal=True), ctx)
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), ctx)
+    return x, (k, v)
+
+
+def _forward_zamba(params, batch, ctx: Ctx, return_cache: bool):
+    cfg = ctx.cfg
+    x, pos, _ = _embed_inputs(params, batch, ctx)
+    shared = params["shared"]
+
+    def mamba_layer(x, p_l):
+        y, (conv, ssm) = ssm_mod.mamba2_chunked(
+            p_l["m"], rmsnorm(p_l["ln"], x, cfg.norm_eps), ctx)
+        return x + y, ((conv, ssm) if return_cache else None)
+
+    def group(x, p_g):
+        x, states = _scan(mamba_layer, x, p_g, cfg.remat)
+        x, (k, v) = _shared_attn_block(shared, x, ctx, pos)
+        if not return_cache:
+            return x, None
+        return x, (torch.stack([s[0] for s in states]),
+                   torch.stack([s[1] for s in states]), k, v)
+
+    x, ys = _scan(group, x, params["mamba"], cfg.remat)
+    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    cache = None
+    if return_cache:
+        cache = {name: torch.stack([y[j] for y in ys])
+                 for j, name in enumerate(("conv", "ssm", "k", "v"))}
+        cache["pos"] = _full_pos(x)
+    return h, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _forward_rwkv(params, batch, ctx: Ctx, return_cache: bool):
+    cfg = ctx.cfg
+    x, _, _ = _embed_inputs(params, batch, ctx)
+
+    def body(x, p):
+        t, (tshift, wkv) = ssm_mod.rwkv6_time_mix(
+            p["time"], layernorm(p["ln1"], x, cfg.norm_eps), ctx)
+        x = x + t
+        c, cshift = ssm_mod.rwkv6_channel_mix(
+            p["channel"], layernorm(p["ln2"], x, cfg.norm_eps), ctx)
+        x = x + c
+        return x, ((tshift, wkv, cshift) if return_cache else None)
+
+    x, ys = _scan(body, x, params["layers"], cfg.remat)
+    h = layernorm(params["final_norm"], x, cfg.norm_eps)
+    cache = None
+    if return_cache:
+        cache = {name: torch.stack([y[j] for y in ys])
+                 for j, name in enumerate(("tshift", "wkv", "cshift"))}
         cache["pos"] = _full_pos(x)
     return h, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -323,11 +459,26 @@ def cache_spec(cfg: ModelConfig, batch_size: int, max_len: int) -> dict[str, Any
         return torch.empty(shape, dtype=dtype, device="meta")
 
     out: dict[str, Any] = {"pos": meta((B,), torch.int32)}
-    out["k"] = meta((L, B, max_len, KV, Dh), dt)
-    out["v"] = meta((L, B, max_len, KV, Dh), dt)
+    if fam in ("dense", "moe", "vlm", "audio"):
+        out["k"] = meta((L, B, max_len, KV, Dh), dt)
+        out["v"] = meta((L, B, max_len, KV, Dh), dt)
     if fam == "audio":
         out["xk"] = meta((L, B, cfg.enc_seq, KV, Dh), dt)
         out["xv"] = meta((L, B, cfg.enc_seq, KV, Dh), dt)
+    elif fam == "hybrid":
+        G, per = _zamba_groups(cfg)
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        conv_dim = H * P + 2 * N
+        out["conv"] = meta((G, per, B, cfg.d_conv - 1, conv_dim), dt)
+        out["ssm"] = meta((G, per, B, H, P, N), torch.float32)
+        out["k"] = meta((G, B, max_len, KV, Dh), dt)
+        out["v"] = meta((G, B, max_len, KV, Dh), dt)
+    elif fam == "ssm":
+        D = cfg.d_model
+        H, C = D // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        out["tshift"] = meta((L, B, D), dt)
+        out["cshift"] = meta((L, B, D), dt)
+        out["wkv"] = meta((L, B, H, C, C), torch.float32)
     return out
 
 
@@ -383,7 +534,10 @@ def _cache_insert(cache_l, new, pos):
 
 def _check_positions(cache):
     """The reference clamps an out-of-range write to the cache's last slot;
-    the port refuses it (one host read of the positions a step)."""
+    the port refuses it (one host read of the positions a step). The ssm
+    family's states have no sequence axis: any position fits."""
+    if "k" not in cache:
+        return
     max_len = cache["k"].shape[2]
     last = int(cache["pos"].max())
     if last >= max_len:
@@ -402,6 +556,10 @@ def decode_step(params, batch, cache, ctx: Ctx):
     _check_positions(cache)
     if fam == "audio":
         h, cache = _decode_whisper(params, batch, cache, ctx)
+    elif fam == "hybrid":
+        h, cache = _decode_zamba(params, batch, cache, ctx)
+    elif fam == "ssm":
+        h, cache = _decode_rwkv(params, batch, cache, ctx)
     else:
         h, cache = _decode_attn(params, batch, cache, ctx)
     logits = logits_last(h[:, -1, :], unembed_matrix(params["embed"], ctx), ctx)
@@ -413,6 +571,8 @@ def _decode_embed(params, batch, cache, ctx: Ctx):
     pos = cache["pos"]  # (B,) index where this token is written
     if ctx.cfg.family == "audio":
         x = x + _sinusoid_at(pos, ctx.cfg.d_model)[:, None, :].to(x.dtype)
+    if ctx.cfg.family == "ssm":
+        x = layernorm(params["ln0"], x, ctx.cfg.norm_eps)
     return x, pos
 
 
@@ -470,6 +630,55 @@ def _decode_whisper(params, batch, cache, ctx: Ctx):
                               valid_len=cfg.enc_seq)
         x = x + out_project(p["cross_attn"], ca, ctx)
         x = x + mlp(p["mlp"], layernorm(p["ln3"], x, cfg.norm_eps), ctx)
+    h = layernorm(params["final_norm"], x, cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return h, cache
+
+
+def _decode_zamba(params, batch, cache, ctx: Ctx):
+    cfg = ctx.cfg
+    x, pos = _decode_embed(params, batch, cache, ctx)
+    pos2 = pos[:, None]
+    shared = params["shared"]
+    groups = params["mamba"]
+    for g in range(_n_layers(groups)):
+        p_g = _layer(groups, g)
+        for i in range(_n_layers(p_g)):
+            p_l = _layer(p_g, i)
+            conv, ssm = cache["conv"][g, i], cache["ssm"][g, i]
+            y, (conv2, ssm2) = ssm_mod.mamba2_step(
+                p_l["m"], rmsnorm(p_l["ln"], x, cfg.norm_eps), ctx, conv, ssm)
+            conv.copy_(conv2)
+            ssm.copy_(ssm2)
+            x = x + y
+        k_c, v_c = cache["k"][g], cache["v"][g]
+        h = rmsnorm(shared["ln1"], x, cfg.norm_eps)
+        q, k, v = qkv_project(shared["attn"], h, h, ctx, pos2, pos2)
+        _cache_insert(k_c, k, pos)
+        _cache_insert(v_c, v, pos)
+        x = x + out_project(shared["attn"], decode_attention(q, k_c, v_c, pos, ctx), ctx)
+        x = x + mlp(shared["mlp"], rmsnorm(shared["ln2"], x, cfg.norm_eps), ctx)
+    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return h, cache
+
+
+def _decode_rwkv(params, batch, cache, ctx: Ctx):
+    cfg = ctx.cfg
+    x, pos = _decode_embed(params, batch, cache, ctx)
+    layers = params["layers"]
+    for i in range(_n_layers(layers)):
+        p = _layer(layers, i)
+        tsh, wkv, csh = cache["tshift"][i], cache["wkv"][i], cache["cshift"][i]
+        t, (tsh2, wkv2) = ssm_mod.rwkv6_time_step(
+            p["time"], layernorm(p["ln1"], x, cfg.norm_eps), ctx, tsh, wkv)
+        x = x + t
+        c, csh2 = ssm_mod.rwkv6_channel_mix(
+            p["channel"], layernorm(p["ln2"], x, cfg.norm_eps), ctx, csh)
+        x = x + c
+        tsh.copy_(tsh2)
+        wkv.copy_(wkv2)
+        csh.copy_(csh2)
     h = layernorm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"] = pos + 1
     return h, cache

@@ -63,6 +63,13 @@ def leaves(tree, path: tuple = ()) -> list[tuple[tuple[str, ...], Any]]:
     return [(path, tree)]
 
 
+def at(tree, path: tuple):
+    """The leaf of a nested dict at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def schema_axes(schema: Schema):
     return map_schema(lambda s: s.axes, schema)
 

@@ -1,7 +1,7 @@
 """The port's LM configs and param schemas against the reference's
 (``repro.configs``, ``repro.models.params``): every registered arch, its
-smoke config, the shapes and the parameter counts of the attention
-families at full size (arithmetic over the schema, nothing allocated);
+smoke config, the shapes and the parameter counts of every family at
+full size (arithmetic over the schema, nothing allocated);
 meta-device shapes and seeded init; and the LM modules load neither jax,
 nor repro, nor ml_dtypes."""
 from __future__ import annotations
@@ -30,7 +30,6 @@ from repro_torch.configs import (
     list_archs,
     smoke_config,
 )
-from repro_torch.core.api import YdfError
 from repro_torch.models import lm
 from repro_torch.models.params import (
     ParamSpec,
@@ -75,20 +74,45 @@ def test_unknown_arch_raises_key_error():
         get_arch("gpt-0")
 
 
-@pytest.mark.parametrize("name", ATTN)
+FULL_SIZE = {"qwen2-1.5b": 1_543_714_304, "zamba2-2.7b": 2_314_535_840,
+             "rwkv6-3b": 3_089_295_360}
+
+
+@pytest.mark.parametrize("name", ARCHS)
 def test_full_size_param_count_equals_the_reference(name):
     cfg = get_arch(name)
     n = schema_n_params(lm.model_schema(cfg))
     assert n == ref_schema_n_params(ref_lm.model_schema(ref_get_arch(name)))
-    if name == "qwen2-1.5b":
-        assert 1.5e9 < n < 1.6e9          # ~1.54 B, 3.1 GB in bf16
+    if name in FULL_SIZE:
+        assert n == FULL_SIZE[name]
 
 
 @pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-3b"])
-def test_ssm_families_are_refused_naming_the_roadmap_item(name):
-    for cfg in (get_arch(name), smoke_config(get_arch(name))):
-        with pytest.raises(YdfError, match="A9.2"):
-            lm.model_schema(cfg)
+def test_hybrid_and_ssm_schemas_equal_the_reference(name):
+    """The hybrid and ssm families' param trees: every path, shape, axes
+    and init equal to the reference's, at full size and in the smoke
+    config (zamba2: the Mamba2 layers stacked (groups, per group), one
+    shared attention block)."""
+    from repro.models.params import ParamSpec as RefSpec
+    for cfg, ref in ((get_arch(name), ref_get_arch(name)),
+                     (smoke_config(get_arch(name)), ref_smoke_config(ref_get_arch(name)))):
+        ours, theirs = {}, {}
+        _walk(lm.model_schema(cfg), (), ours)
+        _walk(ref_lm.model_schema(ref), (), theirs, RefSpec)
+        assert ours.keys() == theirs.keys()
+        for k in ours:
+            assert ours[k] == theirs[k], k
+    zamba = lm.model_schema(get_arch("zamba2-2.7b"))
+    assert zamba["mamba"]["m"]["in_proj"].shape == (9, 6, 2560, 2 * 5120 + 2 * 64 + 80)
+    assert zamba["shared"]["attn"]["wq"].shape == (2560, 32, 80)
+
+
+def _walk(tree, path, out, spec_type=ParamSpec):
+    if isinstance(tree, spec_type):
+        out[path] = (tuple(tree.shape), tuple(tree.axes), tree.init, tree.scale, tree.dtype)
+        return
+    for k, v in tree.items():
+        _walk(v, path + (k,), out, spec_type)
 
 
 def test_schema_shapes_are_meta_tensors():
