@@ -22,9 +22,14 @@ through the depth-bucketed engines and the asyncio front end; inspect, edit,
 build and analyze models, run the meta-learners and drive the command line
 (ROADMAP A6); train boosted trees over torch.distributed meshes and the
 simulation backend with worker faults, and the linear baseline (ROADMAP
-A7, A8); and serve the LM stack's attention families (ROADMAP A9):
-qwen2-1.5b at full width and depth in bf16 through prefill, decode and
-greedy generation.
+A7, A8); compare the trained GBT with the trained RF by the paired
+bootstrap (``compare_correctness``, A10); serve and train the LM stack
+(ROADMAP A9): qwen2-1.5b at full width and depth in bf16 through
+prefill, decode, greedy generation and train steps; and run it sharded
+over meshes (A9.4, phases 41-42): a (1, 1, 1) mesh in a world of 1, and
+one world of four gloo ranks sharing the card for the train step, a
+resharding restore, serving under both serving rule sets, the int8
+hierarchical psum and the GPipe pipeline.
 The serving front end is also driven at the full width of the
 default GBT over the Adult-like schema, with random weights from a numpy
 seed (trees grown breadth-first to depths of 3 to 6, thresholds drawn from
@@ -351,9 +356,10 @@ JSON line each:
  38. lm_ssm_parity — zamba2-2.7b and rwkv6-3b (LM_SSM_ARCHS, the hybrid and
                      ssm families) as phase 35: smoke configs, card against
                      CPU, the conv/ssm and shift/wkv states among the caches.
- 39. lm_ssm_serve  — zamba2-2.7b (54 Mamba2 layers, 9 uses of the shared
-                     block) and rwkv6-3b (32 layers) at full width and
-                     depth, weights from ``lm_ssm_weights`` (full fan-in,
+ 39. lm_ssm_serve  — zamba2-2.7b (12 of its 54 Mamba2 layers, 2 uses of
+                     the shared block) and rwkv6-3b (8 of its 32 layers)
+                     at full width (LM_SSM_SERVE_LAYERS; the depths cut so
+                     that phases 41-42 fit the time limit), weights from ``lm_ssm_weights`` (full fan-in,
                      residual branches rescaled, the decays' published
                      inits; the reference's draw reported): float32
                      decode against forward after a prompt of
@@ -364,8 +370,9 @@ JSON line each:
                      launches a step, bounds from the shapes); bf16
                      against float32 prefill logits (LM_BF16_REL; zamba2
                      gated at one group, LM_SSM_BF16_DEPTH, and reported
-                     at full depth).
- 40. lm_train      — (a) qwen2-1.5b at full width and depth, bf16 params
+                     at the served depth).
+ 40. lm_train      — (a) qwen2-1.5b at full width cut to LM_TRAIN["layers"]
+                     of 28 layers (phase 41 runs all 28), bf16 params
                      (attention projections at full fan-in; one step on
                      the reference's draw reported), AdamW, remat "full":
                      LM_TRAIN["steps"] steps of 4 x
@@ -380,6 +387,35 @@ JSON line each:
                      arch's smoke config: one step, card against CPU (loss
                      LM_TRAIN_LOSS_REL, grad norm LM_TRAIN_GNORM_REL). None
                      of B1-B4 launches in phases 38-40 either.
+ 41. lm_mesh_one   — a world of 1 with NCCL in this process, on a (pod,
+                     data, model) = (1, 1, 1) mesh: LM_TRAIN's config at
+                     full depth (28 layers, bf16, 4 x 2,048 tokens), two
+                     sharded train steps equal to ``make_train_step``
+                     without a mesh bit for bit (loss, grad norm, every
+                     leaf), and prefill plus 8 greedy tokens under
+                     SERVE_RULES equal to one device bit for bit. Every
+                     group has one rank, so no collective runs: this
+                     holds the bundles' plumbing at full depth; phase 42
+                     holds the collectives.
+ 42. lm_mesh_world — one spawned world of four gloo ranks sharing the card
+                     (collectives staged through the host), qwen2-1.5b at
+                     full width cut to 4 layers, float32 with TF32 off:
+                     (a) the train step on MESH_TRAIN against one device
+                     (LM_MESH_REL; each slot leaf, the reduced gradient,
+                     LM_MESH_SLOTS of its own largest entry); (b) saved on MESH_TRAIN, restored on
+                     MESH_RESTORE (equal), one step against the step
+                     continued on MESH_TRAIN; (c) prefill, a decode step
+                     and 8 greedy tokens under SERVE_RULES and
+                     LONG_DECODE_RULES (logits LM_MESH_LOGITS, tokens
+                     equal); (d) the int8 hierarchical psum on MESH_PSUM;
+                     (e) the GPipe pipeline on MESH_PIPE. Reported: s a
+                     step, collective bytes and host seconds a step (the
+                     host-staged share), peak memory per rank. None of
+                     B1-B4 launches in phases 41-42.
+
+After serve_rf, ``compare_correctness`` (ROADMAP A10) compares the trained
+GBT with the trained RF on the validation rows by the paired bootstrap,
+from the card's predictions and from the CPU's: equal.
 
 train_uplift also trains the numerical-outcome case (``numerical_uplift``)
 and holds it to the CPU with ``equal_but_gain``. After the timings phase,
@@ -589,16 +625,21 @@ LM_BF16_REL = 0.25
 LM_FAMILIES = ("qwen2-moe-a2.7b", "paligemma-3b", "whisper-large-v3")
 LM_FAMILY = dict(layers=2, batch=4, prompt=512, gen=8)
 # Phases 38-40 (ROADMAP A9, second part). LM_SSM_SERVE: zamba2 and rwkv6 at
-# full width and depth, bf16; LM_SSM_CHECK: the float32 decode-against-
+# full width, bf16; LM_SSM_CHECK: the float32 decode-against-
 # forward check, its forward over 512 tokens (two of zamba2's 256-token
 # chunks, four of rwkv6's 128; the prompt of 511 runs 7 chunks of 73).
-# LM_TRAIN: qwen2-1.5b's train steps; LM_TRAIN_RESUME: train_loop at its
-# width cut to 2 layers; LM_TRAIN_SSM: one step of each ssm arch at full
-# width (zamba2: one group of 6 Mamba2 layers and the shared block);
+# LM_TRAIN: qwen2-1.5b's train steps (full width; phase 40 (a) cut to
+# LM_TRAIN["layers"] of 28 layers so that phases 41-42 fit the time limit,
+# phase 41 runs the full depth); LM_TRAIN_RESUME: train_loop at its width
+# cut to 2 layers; LM_TRAIN_SSM: one step of each ssm arch at full width
+# (zamba2: one group of 6 Mamba2 layers and the shared block);
 # LM_TRAIN_PARITY: every smoke config's step, card against CPU.
+# LM_SSM_SERVE_LAYERS: phase 39's depths (of 54 and 32; cut for the same
+# reason).
 LM_SSM_SERVE = dict(batch=4, prompt=2048, gen=32)
+LM_SSM_SERVE_LAYERS = {"zamba2-2.7b": 12, "rwkv6-3b": 8}
 LM_SSM_CHECK = dict(batch=2, prompt=511)
-LM_TRAIN = dict(arch="qwen2-1.5b", batch=4, seq=2048, steps=10)
+LM_TRAIN = dict(arch="qwen2-1.5b", batch=4, seq=2048, steps=10, layers=7)
 LM_TRAIN_RESUME = dict(layers=2, batch=2, seq=512, steps=6, split=3)
 LM_TRAIN_SSM = dict(batch=2, seq=2048, layers={"zamba2-2.7b": 6, "rwkv6-3b": 2})
 LM_TRAIN_PARITY = dict(batch=2, seq=32)
@@ -610,10 +651,42 @@ LM_TRAIN_PARITY = dict(batch=2, seq=32)
 LM_SSM_BF16_DEPTH = {"zamba2-2.7b": 6}
 LM_TRAIN_LOSS_REL = 1e-5
 LM_TRAIN_GNORM_REL = 1e-4
-H100_F32_FLOPS = 67e12
-# published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16
-H100_BYTES_PER_S = 3.35e12
-H100_BF16_FLOPS = 989e12
+# Phases 41-42 (ROADMAP A10, A9.4): the LM mesh. Phase 41 runs LM_TRAIN's
+# configuration (qwen2-1.5b at full depth, bf16, 4 x 2,048 tokens) for
+# LM_MESH_ONE["steps"] steps on a (1, 1, 1) mesh in an NCCL world of 1, and
+# serves LM_SERVE's prompts with LM_MESH_ONE["gen"] greedy tokens under
+# SERVE_RULES: both bit for bit against one device. Phase 42 runs one world
+# of LM_MESH_WORLD["world"] gloo ranks sharing the card: qwen2-1.5b at full
+# width cut to LM_MESH_WORLD["layers"] layers, float32: the train step on
+# MESH_TRAIN against one device (loss and grad norm within LM_MESH_REL
+# relative, params within LM_MESH_REL of their largest entry, each slot
+# leaf within LM_MESH_SLOTS of its own largest entry: after a first AdamW
+# step the params move by ~lr(0) sign(g) whatever |g|, so the slots, which
+# hold the reduced gradient, are what shows a leaf's gradient), a save on
+# MESH_TRAIN restored on MESH_RESTORE and stepped against the step continued
+# on MESH_TRAIN, prefill and decode under both serving rule sets (logits
+# within LM_MESH_LOGITS, tokens equal), the int8 hierarchical psum on
+# MESH_PSUM (within PSUM_QUANTA quanta compressed, PSUM_ATOL not) and the
+# pipeline on MESH_PIPE (PIPE_ATOL of the sequential stages).
+LM_MESH_ONE = dict(steps=2, gen=8)
+LM_MESH_WORLD = dict(world=4, layers=4, batch=4, seq=512, prompt=64, gen=8)
+MESH_TRAIN = ((1, 2, 2), ("pod", "data", "model"))
+MESH_RESTORE = ((4, 1), ("data", "model"))
+MESH_PSUM = ((2, 2), ("pod", "data"))
+MESH_PIPE = ((4,), ("stage",))
+PIPE_SHAPE = dict(n_micro=6, micro_batch=8, width=1536)
+LM_MESH_REL = 1e-5
+LM_MESH_SLOTS = 1e-4    # the slot tolerance of tests/test_torch_lm_train.py
+LM_MESH_LOGITS = 1e-4
+PSUM_QUANTA = 1.2
+PSUM_ATOL = 1e-4
+PIPE_ATOL = 1e-5
+# published H100 SXM peaks, one source with the roofline (launch/mesh.py)
+from repro_torch.launch.mesh import (  # noqa: E402
+    H100_BF16_FLOPS,
+    H100_BYTES_PER_S,
+    H100_F32_FLOPS,
+)
 
 # The Adult-like schema (repro/data/tabular.py adult_like) as a dataspec in
 # the JSON form of dataspec.json: dictionaries ordered by frequency, code 0
@@ -4708,8 +4781,9 @@ def _bf16_vs_f32_at(cfg, device, batch: int, prompt: int, what: str) -> dict:
 def lm_ssm_serve(device, archs=LM_SSM_ARCHS, batch: int = LM_SSM_SERVE["batch"],
                  prompt: int = LM_SSM_SERVE["prompt"], gen: int = LM_SSM_SERVE["gen"],
                  check: dict = LM_SSM_CHECK, width=None) -> dict:
-    """Phase 39. Each arch at full width and depth (``width`` overrides: a
-    function of the config, for the CPU rehearsal), weights from SEED
+    """Phase 39. Each arch at full width, LM_SSM_SERVE_LAYERS deep
+    (``width`` overrides: a function of the config, for the CPU
+    rehearsal), weights from SEED
     through ``lm_ssm_weights``:
     (a) float32 decode against forward after ``check["prompt"]`` tokens
         (gated at LM_DECODE_TOL; the reference's draw reported beside);
@@ -4727,7 +4801,7 @@ def lm_ssm_serve(device, archs=LM_SSM_ARCHS, batch: int = LM_SSM_SERVE["batch"],
     out = {}
     for name in archs:
         t0 = clock.perf()
-        cfg = get_arch(name)
+        cfg = get_arch(name).replace(n_layers=LM_SSM_SERVE_LAYERS[name])
         if width is not None:
             cfg = width(cfg)
         c32 = cfg.replace(dtype="float32", param_dtype="float32")
@@ -4888,8 +4962,8 @@ def _lm_finite(tree) -> bool:
 
 def lm_train(device, cfg=None, batch: int = LM_TRAIN["batch"], seq: int = LM_TRAIN["seq"],
              steps: int = LM_TRAIN["steps"]) -> dict:
-    """Phase 40 (a). qwen2-1.5b at full width and depth (``cfg``
-    overrides), the config's bf16 params, AdamW, remat "full": ``steps``
+    """Phase 40 (a). qwen2-1.5b at full width, LM_TRAIN["layers"] deep
+    (``cfg`` overrides), the config's bf16 params, AdamW, remat "full": ``steps``
     steps of ``batch`` x ``seq`` tokens of the synthetic stream through
     ``make_train_step``, each timed with CUDA events (the first apart:
     first-use costs), then one more traced (``device_trace``); loss and
@@ -4906,7 +4980,7 @@ def lm_train(device, cfg=None, batch: int = LM_TRAIN["batch"], seq: int = LM_TRA
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.lm_data import batch_at
     from repro_torch.train import init_train_state, make_train_step
-    cfg = cfg or get_arch(LM_TRAIN["arch"])
+    cfg = cfg or get_arch(LM_TRAIN["arch"]).replace(n_layers=LM_TRAIN["layers"])
     cuda = torch.device(device).type == "cuda"
     shape = ShapeConfig("train", "train", seq, batch)
     step_fn = make_train_step(cfg, shape, device=device).jitted()
@@ -5108,9 +5182,679 @@ def lm_train_parity(device, archs=LM_PARITY_ARCHS, batch: int = LM_TRAIN_PARITY[
     return out
 
 
+# ------------------------------------------------------------------ LM mesh
+
+def _torch_tree(tree, device):
+    import torch
+    return _lm_tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def _mesh(spec, device):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(spec[0], spec[1], device=device)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _gather_to_root(sh, block) -> tuple:
+    """The global tensor of ``block`` under the NamedSharding ``sh``, in
+    float32 on rank 0's device, and the largest difference between the
+    copies of a block that several ranks hold; (None, 0.0) on the other
+    ranks. One ``gather`` to rank 0 over the world: the checks' own
+    collective, so that only rank 0 receives (a step's gathers go to
+    every rank)."""
+    import torch
+    import torch.distributed as dist
+    mesh = sh.mesh
+    x = block.detach().float().cpu().contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.size)] if mesh.rank == 0 else None
+    dist.gather(x, parts, dst=0)
+    if mesh.rank != 0:
+        return None, 0.0
+    cut = _cut_axes(sh, x.dim())
+    full = torch.empty([n * sh.blocks(d) for d, n in enumerate(x.shape)],
+                       device=mesh.device)
+    seen, spread = set(), 0.0
+    for r, part in enumerate(parts):
+        coords = dict(zip(mesh.axis_names,
+                          np.unravel_index(r, tuple(mesh.shape.values()))))
+        key = tuple(int(np.ravel_multi_index([coords[a] for a in axes],
+                                             [mesh.shape[a] for a in axes]))
+                    if axes else 0 for axes in cut)
+        where = tuple(slice(i * n, (i + 1) * n) for i, n in zip(key, x.shape))
+        part = part.to(mesh.device)
+        if key in seen:
+            if part.numel():
+                spread = max(spread, (full[where] - part).abs().max().item())
+        else:
+            full[where] = part
+            seen.add(key)
+    return full, spread
+
+
+def _cut_axes(sh, ndim: int) -> list:
+    """The mesh axes each dimension of a leaf under ``sh`` is cut over."""
+    from repro_torch.sharding import spec_axes
+    return [spec_axes(sh.spec[d] if d < len(sh.spec) else None) for d in range(ndim)]
+
+
+def _tree_hashes(tree, shardings) -> dict:
+    """Each leaf's global tensor as one integer, from this rank's blocks:
+    the sum over its entries of the entry's bits times (2 x its global flat
+    index + 1), in int64 arithmetic that wraps, so every layout of the
+    same tensor gives the same number and a changed or moved entry another
+    one. A block counts once (the rank whose coordinates off the leaf's
+    axes are all 0 adds it); one all-reduce for every leaf (collective)."""
+    import torch
+    from repro_torch.models.params import at, leaves
+    hashes, paths, mesh = [], [], None
+    for path, x in leaves(tree):
+        sh = at(shardings, path)
+        mesh = sh.mesh
+        cut = _cut_axes(sh, x.dim())
+        used = {a for axes in cut for a in axes}
+        h = torch.zeros((), dtype=torch.int64, device=x.device)
+        if x.numel() and all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in used):
+            index, stride = torch.zeros((), dtype=torch.int64, device=x.device), 1
+            for d in reversed(range(x.dim())):
+                n, view = x.shape[d], [1] * x.dim()
+                view[d] = n
+                first = mesh.block_index(cut[d]) * n
+                index = index + (torch.arange(n, device=x.device) + first).view(view) * stride
+                stride *= n * sh.blocks(d)
+            word = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+            bits = x.detach().contiguous().view(word[x.element_size()]).long()
+            h = (bits * (2 * index + 1)).sum()
+        hashes.append(h)
+        paths.append("/".join(path))
+    return dict(zip(paths, mesh.all_reduce(torch.stack(hashes), None).tolist()))
+
+
+def _gathered_diff(a, sh_a, b, sh_b) -> dict:
+    """``a`` against ``b``, two trees of blocks, ``a``'s on another mesh
+    than ``b``'s, each leaf put together on rank 0 (``_gather_to_root``;
+    a difference between the copies of a block counts too). On rank 0:
+    ``max_abs_diff`` and ``max_abs`` (the largest |b|) over all leaves;
+    ``leaf_rel`` the largest over the leaves of a leaf's max |a - b| over
+    its max |b|, and ``leaf`` that leaf's path. The other ranks return
+    None."""
+    from repro_torch.models.params import at, leaves
+    rows, paths = [], []
+    for (path, x), (_, y) in zip(leaves(a), leaves(b)):
+        fa, sa = _gather_to_root(at(sh_a, path), x)
+        fb, sb = _gather_to_root(at(sh_b, path), y)
+        if fa is not None:
+            paths.append("/".join(path))
+            rows.append([max((fa - fb).abs().max().item(), sa, sb),
+                         fb.abs().max().item()] if fb.numel() else [0.0, 0.0])
+    return _leaf_stats(rows, paths) if rows else None
+
+
+def _leaf_stats(rows, paths) -> dict:
+    """From (max |difference|, max |reference|) per leaf: the largest
+    difference, the largest entry, and the worst leaf relative to its own
+    largest entry (a leaf whose reference is all zero counts its
+    difference over 1e-30)."""
+    rel = [d / max(t, 1e-30) for d, t in rows]
+    worst = max(range(len(rows)), key=rel.__getitem__)
+    return {"max_abs_diff": max(d for d, _ in rows), "max_abs": max(t for _, t in rows),
+            "leaf_rel": rel[worst], "leaf": paths[worst]}
+
+
+def _mesh_state(case, device):
+    """The case's initial train state: its arrays, or ``init_train_state``
+    from SEED with the attention projections at full fan-in."""
+    import torch
+    from repro_torch.train import init_train_state
+    if case.get("state") is not None:
+        return _torch_tree(case["state"], device)
+    state = init_train_state(torch.Generator(device=device).manual_seed(SEED),
+                             case["cfg"], device=device)
+    full_fan_in(state["params"], case["cfg"])
+    return state
+
+
+def _mesh_batch(case, shape, step: int, device) -> dict:
+    from repro_torch.data.lm_data import batch_at
+    if case.get("batches") is not None:
+        return _torch_tree(case["batches"][step], device)
+    return batch_at(case["cfg"], shape, step, seed=SEED, device=device)
+
+
+def _peak_per_rank(mesh, device) -> list:
+    import torch
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    return mesh.all_gather(torch.tensor([peak], dtype=torch.int64, device=device),
+                           mesh.axis_names).tolist()
+
+
+def mesh_train_case(case, mesh, device) -> tuple:
+    """One sharded train step of ``case`` on ``mesh`` against the one-device
+    step from the same state and global batch (on rank 0): the row, and
+    the step's bundle and blocks (for ``mesh_reshard``)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.obs import clock
+    from repro_torch.sharding import rules_for, tree_shard
+    from repro_torch.train import make_train_step
+    cfg = case["cfg"]
+    shape = ShapeConfig("mesh", "train", case["seq"], case["batch"])
+    bundle = make_train_step(cfg, shape, mesh, rules_for("train"), device=device)
+    blocks = tree_shard(_mesh_state(case, device), bundle.state_shardings)
+    batch = _mesh_batch(case, shape, 0, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    mesh.traffic.update(calls=0, bytes=0, seconds=0.0)
+    _lm_sync(device)
+    t0 = clock.perf()
+    blocks, m = bundle.step_fn(blocks, tree_shard(batch, bundle.batch_shardings))
+    _lm_sync(device)
+    step_s = clock.perf() - t0
+    traffic = dict(mesh.traffic)
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": case["batch"], "seq": case["seq"], "mesh": dict(mesh.shape),
+           "backend": mesh.backend, "host_staged": mesh.host_staged,
+           "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+           "step_s": step_s, "collective_calls": traffic["calls"],
+           "collective_bytes": traffic["bytes"],
+           "collective_s": traffic["seconds"],
+           "collective_share": traffic["seconds"] / step_s,
+           "peak_memory_bytes_per_rank": _peak_per_rank(mesh, device)}
+    one_state = one_m = None
+    if mesh.rank == 0:
+        one_state, one_m = make_train_step(cfg, shape, device=device).step_fn(
+            _mesh_state(case, device), batch)
+        row.update(loss_one=one_m["loss"].item(), grad_norm_one=one_m["grad_norm"].item())
+        row.update(loss_rel=_rel(row["loss"], row["loss_one"]),
+                   grad_norm_rel=_rel(row["grad_norm"], row["grad_norm_one"]))
+    # every leaf of the sharded step's state against the one-device step's.
+    # The params alone cannot show a gradient fault: AdamW's first step
+    # moves each entry by ~lr(0) sign(g) whatever |g|. The slots hold the
+    # reduced, clipped gradient (m = (1 - b1) g, v = (1 - b2) g^2 after one
+    # step), so each slot leaf is held to its own largest entry.
+    from repro_torch.models.params import at, leaves
+    stats = {"params": ([], []), "slots": ([], [])}
+    arrays = {}
+    for kind, (rows, paths) in stats.items():
+        for path, x in leaves(blocks[kind]):
+            full, spread = _gather_to_root(at(bundle.state_shardings[kind], path), x)
+            if full is not None:
+                ref = at(one_state[kind], path).float()
+                rows.append([max((full - ref).abs().max().item(), spread),
+                             ref.abs().max().item()] if ref.numel() else [0.0, 0.0])
+                paths.append("/".join(path))
+                if kind == "params" and case.get("return_params"):
+                    arrays["/".join(path)] = full.cpu().numpy()
+    if mesh.rank == 0:
+        p, sl = (_leaf_stats(*stats[k]) for k in ("params", "slots"))
+        row.update(params_max_abs_diff=p["max_abs_diff"], params_max_abs=p["max_abs"],
+                   params_rel=p["max_abs_diff"] / max(p["max_abs"], 1e-30),
+                   slots_leaf_rel=sl["leaf_rel"], slots_worst_leaf=sl["leaf"])
+        if arrays:
+            row["params"] = arrays
+    del one_state
+    return row, (cfg, shape, bundle, blocks)
+
+
+def mesh_reshard(case, kept, restore_spec, directory: str, device) -> dict:
+    """Save the stepped blocks on their mesh, restore them on
+    ``restore_spec``'s mesh (every leaf equal to the saved one: the same
+    ``_tree_hashes``), and step
+    both on the next batch: the restored run against the continued one."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.obs import clock
+    from repro_torch.sharding import rules_for, tree_shard
+    from repro_torch.train import make_train_step
+    cfg, shape, bundle_a, blocks_a = kept
+    mesh_a = bundle_a.state_shardings["step"].mesh
+    mgr = CheckpointManager(directory)
+    t0 = clock.perf()
+    mgr.save(1, blocks_a, shardings=bundle_a.state_shardings)
+    save_s = clock.perf() - t0
+    mesh_b = _mesh(restore_spec, device)
+    bundle_b = make_train_step(cfg, shape, mesh_b, rules_for("train"), device=device)
+    t0 = clock.perf()
+    blocks_b, _ = mgr.restore(1, shardings=bundle_b.state_shardings, device=device)
+    _lm_sync(device)
+    restore_s = clock.perf() - t0
+    saved = _tree_hashes(blocks_a, bundle_a.state_shardings)
+    restored = _tree_hashes(blocks_b, bundle_b.state_shardings)
+    batch = _mesh_batch(case, shape, 1, device)
+    blocks_b, mb = bundle_b.step_fn(blocks_b, tree_shard(batch, bundle_b.batch_shardings))
+    blocks_a, ma = bundle_a.step_fn(blocks_a, tree_shard(batch, bundle_a.batch_shardings))
+    p, sl = (_gathered_diff(blocks_b[k], bundle_b.state_shardings[k],
+                            blocks_a[k], bundle_a.state_shardings[k])
+             for k in ("params", "slots"))
+    if p is None:     # rank 0 alone holds the comparisons
+        return None
+    return {"saved_on": dict(mesh_a.shape), "restored_on": dict(mesh_b.shape),
+            "save_s": save_s, "restore_s": restore_s,
+            "checkpoint_bytes": dir_bytes(mgr.path(1)) if mesh_a.rank == 0 else None,
+            "restored_leaves_differing": [k for k in saved if saved[k] != restored[k]],
+            "loss_rel": _rel(mb["loss"].item(), ma["loss"].item()),
+            "grad_norm_rel": _rel(mb["grad_norm"].item(), ma["grad_norm"].item()),
+            "params_max_abs_diff": p["max_abs_diff"],
+            "params_rel": p["max_abs_diff"] / max(p["max_abs"], 1e-30),
+            "slots_leaf_rel": sl["leaf_rel"], "slots_worst_leaf": sl["leaf"]}
+
+
+def mesh_fault_case(case, mesh, device, leaf) -> dict:
+    """``mesh_train_case`` with a planted fault: the gradient of the param
+    at path ``leaf`` (a shape no other param has) is left unreduced over
+    the batch axes. Phase 42's gates must name that leaf
+    (tests/test_torch_lm_mesh.py holds them to it)."""
+    from repro_torch.models.params import at, leaves
+    from repro_torch.train.step import train_state_specs
+    specs = train_state_specs(case["cfg"])[0]["params"]
+    shape = tuple(at(specs, tuple(leaf)).shape)
+    if sum(tuple(x.shape) == shape for _, x in leaves(specs)) != 1:
+        raise ValueError(f"another param has the shape {shape} of {leaf}")
+    reduce = mesh.all_reduce
+
+    def all_reduce(t, axes, op="sum"):
+        return t if tuple(t.shape) == shape else reduce(t, axes, op)
+
+    mesh.all_reduce = all_reduce
+    try:
+        row, _ = mesh_train_case(case, mesh, device)
+    finally:
+        del mesh.all_reduce
+    return row
+
+
+def mesh_serve_case(case, mesh, device) -> dict:
+    """Prefill, decode steps (``decode_steps``, else ``gen``) through the
+    decode bundle and ``gen`` greedy tokens of ``case`` under
+    each of its rule sets on ``mesh``, against one device on the same
+    weights and prompts: the largest logits difference of the prefill and
+    of each decode step (fed the one-device tokens), the prefill cache's,
+    and whether the greedy tokens are equal."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.obs import clock
+    from repro_torch.serving.decode import greedy_generate, make_decode_step, make_prefill
+    from repro_torch.sharding import rules_for, tree_shard
+    cfg, B, S, gen = case["cfg"], case["batch"], case["prompt"], case["gen"]
+    params = (_torch_tree(case["params"], device) if case.get("params") is not None
+              else lm_weights(cfg, device))
+    prompt = (_torch_tree(case["prompt_batch"], device) if case.get("prompt_batch") is not None
+              else lm_batch(cfg, B, S, device))
+    total = S + (cfg.n_patches if cfg.family == "vlm" else 0)
+    ctx = Ctx(cfg.replace(remat="none"), device)
+    with torch.inference_mode():          # one device, on every rank
+        logits0, cache0 = lm.prefill(params, prompt, ctx)
+        grown = lm_grow(cfg, cache0, gen, device)
+        steps0, cache = [], {k: v.clone() for k, v in grown.items()}
+        tok = torch.argmax(logits0, -1).to(torch.int32)[:, None]
+        for _ in range(case.get("decode_steps", gen)):
+            lg, cache = lm.decode_step(params, {"token": tok}, cache, ctx)
+            steps0.append((tok, lg))
+            tok = torch.argmax(lg, -1).to(torch.int32)[:, None]
+    tokens0 = greedy_generate(params, prompt, cfg, gen, device=device)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "prompt": S, "gen": gen,
+           "mesh": dict(mesh.shape)}
+    for name in case["rules"]:
+        rules = rules_for("serve", long_context=name == "long_decode")
+        t0 = clock.perf()
+        pre = make_prefill(cfg, ShapeConfig("p", "prefill", total, B), mesh, rules,
+                           device=device)
+        blocks = tree_shard(params, pre.param_shardings)
+        logits, c_blocks = pre(blocks, tree_shard(prompt, pre.batch_shardings))
+        want = {k: pre.cache_shardings[k].shard(v) for k, v in cache0.items()}
+        cache_diff = max((c_blocks[k].float() - want[k].float()).abs().max().item()
+                         for k in want if want[k].numel())
+        dec = make_decode_step(cfg, ShapeConfig("d", "decode", total + gen, B), mesh,
+                               rules, device=device)
+        c_blocks = tree_shard({k: v.clone() for k, v in grown.items()}, dec.cache_shardings)
+        decode_diff = 0.0
+        for tok, lg0 in steps0:
+            lg, c_blocks = dec(blocks, tree_shard({"token": tok}, dec.batch_shardings),
+                               c_blocks)
+            decode_diff = max(decode_diff, (lg - lg0).abs().max().item())
+        tokens = greedy_generate(blocks, prompt, cfg, gen, mesh, rules, device=device)
+        _lm_sync(device)
+        out[name] = {"prefill_logits_max_abs_diff": (logits - logits0).abs().max().item(),
+                     "prefill_cache_max_abs_diff": cache_diff,
+                     "decode_logits_max_abs_diff": decode_diff,
+                     "tokens_equal": bool(torch.equal(tokens, tokens0)),
+                     "cache_specs": {k: list(v.spec) for k, v in dec.cache_shardings.items()},
+                     "seconds": clock.perf() - t0}
+    return out
+
+
+def mesh_psum(spec, device, dim: int = 64, seed: int = SEED + 2) -> dict:
+    """``hierarchical_psum`` of each rank's (pod, data) row of a seeded
+    (pods, data, dim) array, with and without compression, against the
+    float64 sum; the quantum is the largest |in-pod sum| / 127."""
+    import torch
+    from repro_torch.distributed.compression import hierarchical_psum
+    mesh = _mesh(spec, device)
+    x = np.random.default_rng(seed).standard_normal(
+        (mesh.shape["pod"], mesh.shape["data"], dim)).astype(np.float32)
+    mine = torch.from_numpy(x[mesh.coords["pod"], mesh.coords["data"]].copy()).to(device)
+    ref = x.astype(np.float64).sum((0, 1))
+    out = {"mesh": dict(mesh.shape), "quantum": float(np.abs(x.sum(1)).max() / 127)}
+    for compress in (False, True):
+        got = hierarchical_psum(mine, mesh=mesh, pod_axis="pod", inner_axis="data",
+                                compress=compress).cpu().numpy()
+        out["compressed" if compress else "exact"] = float(np.abs(got - ref).max())
+    return out
+
+
+def mesh_pipeline(spec, device, n_micro: int, micro_batch: int, width: int,
+                  scale: float, seed: int = SEED + 3) -> dict:
+    """The GPipe pipeline of tanh(x @ W_s) over the stage axis against the
+    stages applied in sequence."""
+    import torch
+    from repro_torch.obs import clock
+    from repro_torch.train.pipeline import make_pipeline_fn, pipeline_efficiency
+    mesh = _mesh(spec, device)
+    S = mesh.shape["stage"]
+    g = torch.Generator().manual_seed(seed)
+    Ws = (torch.randn(S, width, width, generator=g) * scale).to(device)
+    xs = torch.randn(n_micro, micro_batch, width, generator=g).to(device)
+    pipe = make_pipeline_fn(lambda w, x: torch.tanh(x @ w), mesh, n_micro=n_micro)
+    t0 = clock.perf()
+    with torch.no_grad():
+        out = pipe(Ws, xs)
+        ref = xs
+        for s in range(S):
+            ref = torch.tanh(ref @ Ws[s])
+    _lm_sync(device)
+    return {"mesh": dict(mesh.shape), "n_micro": n_micro, "micro_batch": micro_batch,
+            "width": width, "max_abs_diff": (out - ref).abs().max().item(),
+            "efficiency": pipeline_efficiency(n_micro, S), "seconds": clock.perf() - t0}
+
+
+def mesh_loop(spec, device) -> dict:
+    """``train_loop`` straight to ``steps`` on one mesh, against a run
+    stopped at ``split`` on that mesh and resumed on another: every leaf of
+    the final checkpoints (rank 0 reads both)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.models.params import leaves
+    from repro_torch.sharding import rules_for
+    from repro_torch.train.loop import LoopConfig, train_loop
+    cfg, steps, split = spec["cfg"], spec["steps"], spec["split"]
+    shape = ShapeConfig("loop", "train", spec["seq"], spec["batch"])
+    rules = rules_for("train")
+    mesh_a = _mesh(spec["mesh"], device)
+
+    def run(path, total, mesh):
+        return train_loop(cfg, shape, path, LoopConfig(
+            total_steps=total, ckpt_every=split, log_every=1, seed=SEED),
+            mesh=mesh, rules=rules, device=device, log=lambda *a: None)
+
+    straight = os.path.join(spec["dir"], "straight")
+    resumed = os.path.join(spec["dir"], "resumed")
+    out_a = run(straight, steps, mesh_a)
+    run(resumed, split, mesh_a)
+    out_b = run(resumed, steps, _mesh(spec["resume_mesh"], device))
+    row = {"losses_straight": out_a["losses"], "losses_resumed": out_b["losses"]}
+    if mesh_a.rank == 0:
+        sa, _ = CheckpointManager(straight).restore(steps, device="cpu")
+        sb, _ = CheckpointManager(resumed).restore(steps, device="cpu")
+        row["max_abs_diff"] = max((a.float() - b.float()).abs().max().item()
+                                  for (_, a), (_, b) in zip(leaves(sa), leaves(sb)))
+    return row
+
+
+def mesh_layout(spec, shards: dict, device) -> dict:
+    """Every rank's block of an arange under each named (shape, spec), in
+    rank order, and on how many ranks ``gather`` rebuilds the array."""
+    import torch
+    from repro_torch.sharding import NamedSharding, PartitionSpec
+    mesh = _mesh(spec, device)
+    out = {}
+    for name, (shape, parts) in shards.items():
+        x = torch.arange(int(np.prod(shape)), dtype=torch.float32,
+                         device=device).reshape(shape)
+        sh = NamedSharding(mesh, PartitionSpec(*parts))
+        block = sh.shard(x)
+        rebuilt = torch.tensor([int(torch.equal(sh.gather(block), x))], device=device)
+        out[name] = {"blocks": mesh.all_gather(block.reshape(1, -1), mesh.axis_names)
+                     .cpu().numpy(),
+                     "rebuilt_on": int(mesh.all_reduce(rebuilt, mesh.axis_names).item())}
+    return out
+
+
+def lm_mesh_rank(job: dict) -> dict:
+    """One rank of phase 42's world and of its CPU rehearsal
+    (tests/test_torch_lm_mesh.py): every part of ``job`` in turn, in the
+    same order on every rank (each builds its meshes: collective). Rank
+    0's results are the world's."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(job["device"])
+    out = {}
+    if "layout" in job:
+        out["layout"] = mesh_layout(job["layout"]["mesh"], job["layout"]["specs"], device)
+    if "train" in job:
+        tr = job["train"]
+        mesh = _mesh(tr["mesh"], device)
+        out["train"] = {}
+        for i, case in enumerate(tr["cases"]):
+            row, kept = mesh_train_case(case, mesh, device)
+            if i == 0 and tr.get("restore_mesh"):
+                row["reshard"] = mesh_reshard(case, kept, tr["restore_mesh"], tr["dir"],
+                                              device)
+            out["train"][case["name"]] = row
+            del kept
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    if "fault" in job:
+        f = job["fault"]
+        out["fault"] = mesh_fault_case(f["case"], _mesh(f["mesh"], device), device,
+                                       f["leaf"])
+    if "serve" in job:
+        mesh = _mesh(job["serve"]["mesh"], device)
+        out["serve"] = {case["name"]: mesh_serve_case(case, mesh, device)
+                        for case in job["serve"]["cases"]}
+    if "psum" in job:
+        out["psum"] = mesh_psum(job["psum"]["mesh"], device)
+    if "pipeline" in job:
+        pl = job["pipeline"]
+        out["pipeline"] = mesh_pipeline(pl["mesh"], device, pl["n_micro"],
+                                        pl["micro_batch"], pl["width"], pl["scale"])
+    if "loop" in job:
+        out["loop"] = mesh_loop(job["loop"], device)
+    return out
+
+
+def lm_mesh_one_rank(device_str: str, cfg=None,
+                     train=(LM_TRAIN["batch"], LM_TRAIN["seq"]),
+                     serve=(LM_SERVE["batch"], LM_SERVE["prompt"])) -> dict:
+    """Phase 41's world of 1 (NCCL on the card): LM_TRAIN's configuration
+    (``cfg`` overrides) for LM_MESH_ONE["steps"] steps of ``train`` = (batch,
+    seq) on a (1, 1, 1) mesh and on one device from the same state and
+    batches, and ``serve`` = (batch, prompt) prefilled with
+    LM_MESH_ONE["gen"] greedy tokens under SERVE_RULES and on one device."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.lm_data import batch_at
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import leaves
+    from repro_torch.obs import clock
+    from repro_torch.serving.decode import greedy_generate, make_prefill
+    from repro_torch.sharding import SERVE_RULES, TRAIN_RULES, tree_shard
+    from repro_torch.train import init_train_state, make_train_step
+    device = torch.device(device_str)
+    cfg = cfg or get_arch(LM_TRAIN["arch"])
+    shape = ShapeConfig("train", "train", train[1], train[0])
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device=device)
+
+    def fresh():
+        state = init_train_state(torch.Generator(device=device).manual_seed(SEED), cfg,
+                                 device=device)
+        full_fan_in(state["params"], cfg)
+        return state
+
+    runs = {}
+    for name, bundle in (("one_device", make_train_step(cfg, shape, device=device)),
+                         ("mesh", make_train_step(cfg, shape, mesh, dict(TRAIN_RULES),
+                                                  device=device))):
+        state = fresh() if bundle.state_shardings is None else \
+            tree_shard(fresh(), bundle.state_shardings)
+        seconds, metrics = [], []
+        for i in range(LM_MESH_ONE["steps"]):
+            b = batch_at(cfg, shape, i, seed=SEED, device=device)
+            if bundle.batch_shardings is not None:
+                b = tree_shard(b, bundle.batch_shardings)
+            _lm_sync(device)
+            t0 = clock.perf()
+            state, m = bundle.step_fn(state, b)
+            _lm_sync(device)
+            seconds.append(clock.perf() - t0)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[name] = (state, seconds, metrics)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    (s0, sec0, m0), (s1, sec1, m1) = runs["one_device"], runs["mesh"]
+    differ = ["/".join(p) for (p, a), (_, b) in zip(leaves(s0), leaves(s1))
+              if not torch.equal(a, b)]
+    row = {"mesh": dict(mesh.shape), "backend": mesh.backend, "steps": len(m0),
+           "metrics_one_device": m0, "metrics_mesh": m1, "metrics_equal": m0 == m1,
+           "leaves": len(leaves(s0)), "leaves_differing": differ,
+           "step_s_one_device": sec0, "step_s_mesh": sec1,
+           "collective_calls": mesh.traffic["calls"]}
+    params = s0["params"]
+    del runs, s1
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    prompt = lm_batch(cfg, serve[0], serve[1], device)
+    pshape = ShapeConfig("p", "prefill", serve[1], serve[0])
+    one = make_prefill(cfg, pshape, device=device)(params, prompt)
+    pre = make_prefill(cfg, pshape, mesh, dict(SERVE_RULES), device=device)
+    blocks = tree_shard(params, pre.param_shardings)
+    got = pre(blocks, tree_shard(prompt, pre.batch_shardings))
+    gen = LM_MESH_ONE["gen"]
+    t0 = clock.perf()
+    tok0 = greedy_generate(params, prompt, cfg, gen, device=device)
+    tok1 = greedy_generate(blocks, prompt, cfg, gen, mesh, dict(SERVE_RULES),
+                           device=device)
+    _lm_sync(device)
+    row["serve"] = {"batch": serve[0], "prompt": serve[1], "gen": gen,
+                    "prefill_logits_equal": bool(torch.equal(one[0], got[0])),
+                    "prefill_cache_equal": all(torch.equal(one[1][k], got[1][k])
+                                               for k in one[1]),
+                    "tokens_equal": bool(torch.equal(tok0, tok1)),
+                    "generate_s_both": clock.perf() - t0}
+    return row
+
+
+def lm_mesh_one(device) -> dict:
+    """Phase 41 (a world of 1 with NCCL, in this process): the sharded
+    train step and serving on (1, 1, 1) bit for bit against one device."""
+    from repro_torch.core.distributed import run_world
+    row = run_world(lm_mesh_one_rank, 1, str(device), device=device)
+    s = row["serve"]
+    if (row["leaves_differing"] or not row["metrics_equal"] or not s["tokens_equal"]
+            or not s["prefill_logits_equal"] or not s["prefill_cache_equal"]):
+        raise AssertionError(f"lm_mesh_one: the (1, 1, 1) mesh differs from one "
+                             f"device: {row}")
+    return row
+
+
+def lm_mesh_job(device, scratch: str) -> dict:
+    """Phase 42's world: qwen2-1.5b at full width cut to
+    LM_MESH_WORLD["layers"] layers, float32."""
+    from repro_torch.configs import get_arch
+    w = LM_MESH_WORLD
+    cfg = get_arch(LM_TRAIN["arch"]).replace(n_layers=w["layers"], dtype="float32",
+                                             param_dtype="float32")
+    return {"device": str(device),
+            "train": {"mesh": MESH_TRAIN, "restore_mesh": MESH_RESTORE, "dir": scratch,
+                      "cases": [{"name": cfg.name, "cfg": cfg, "batch": w["batch"],
+                                 "seq": w["seq"]}]},
+            "serve": {"mesh": MESH_TRAIN,
+                      "cases": [{"name": cfg.name, "cfg": cfg, "batch": w["batch"],
+                                 "prompt": w["prompt"], "gen": w["gen"],
+                                 "decode_steps": 1, "rules": ("serve", "long_decode")}]},
+            "psum": {"mesh": MESH_PSUM},
+            "pipeline": {"mesh": MESH_PIPE, **PIPE_SHAPE,
+                         "scale": PIPE_SHAPE["width"] ** -0.5}}
+
+
+def mesh_failures(out: dict, rel: float = LM_MESH_REL, logits: float = LM_MESH_LOGITS,
+                  pipe: float = PIPE_ATOL, slots: float = LM_MESH_SLOTS) -> list:
+    """The gates of phase 42 that ``out`` (rank 0's results) misses."""
+    bad = []
+    limits = {"loss_rel": rel, "grad_norm_rel": rel, "params_rel": rel,
+              "slots_leaf_rel": slots}
+    for name, row in out.get("train", {}).items():
+        for key, limit in limits.items():
+            if not row[key] <= limit:
+                bad.append((name, key, row[key], row["slots_worst_leaf"]))
+        re = row.get("reshard")
+        if re is not None:
+            if re["restored_leaves_differing"]:
+                bad.append((name, "restored", re["restored_leaves_differing"]))
+            for key, limit in limits.items():
+                if not re[key] <= limit:
+                    bad.append((name, f"reshard {key}", re[key], re["slots_worst_leaf"]))
+    for name, row in out.get("serve", {}).items():
+        for rules, r in row.items():
+            if not isinstance(r, dict) or "tokens_equal" not in r:
+                continue
+            for key in ("prefill_logits_max_abs_diff", "prefill_cache_max_abs_diff",
+                        "decode_logits_max_abs_diff"):
+                if not r[key] <= logits:
+                    bad.append((name, rules, key, r[key]))
+            if not r["tokens_equal"]:
+                bad.append((name, rules, "tokens"))
+    ps = out.get("psum")
+    if ps is not None and not (ps["exact"] <= PSUM_ATOL
+                               and ps["compressed"] <= PSUM_QUANTA * ps["quantum"]):
+        bad.append(("psum", ps))
+    pl = out.get("pipeline")
+    if pl is not None and not (pl["max_abs_diff"] <= pipe and 0 < pl["efficiency"] < 1):
+        bad.append(("pipeline", pl))
+    return bad
+
+
+def lm_mesh_world(device, scratch: str) -> dict:
+    """Phase 42: one spawned world of LM_MESH_WORLD["world"] gloo ranks
+    sharing the card (collectives staged through the host)."""
+    from repro_torch.core.distributed import run_world
+    from repro_torch.obs import clock
+    t0 = clock.perf()
+    out = run_world(lm_mesh_rank, LM_MESH_WORLD["world"], lm_mesh_job(device, scratch),
+                    device=device, timeout_s=600)
+    out["world_s"] = clock.perf() - t0
+    out["cut"] = (f"qwen2-1.5b at full width, {LM_MESH_WORLD['layers']} of 28 layers, "
+                  "float32")
+    bad = mesh_failures(out)
+    if bad:
+        raise AssertionError(f"lm_mesh_world: {bad}")
+    return out
+
+
+def compare_models(a, b, rows: dict, device) -> dict:
+    """ROADMAP A10: ``compare_correctness`` of model ``a`` against ``b`` on
+    the same rows, from predictions on the card and on the CPU: equal."""
+    from repro_torch.core.dataspec import label_values
+    from repro_torch.core.evaluation import compare_correctness
+    out = {}
+    for where in (str(device), "cpu"):
+        ca, cb = ((m.predict_class(rows, device=where) == label_values(m, rows))
+                  for m in (a, b))
+        out[where] = compare_correctness(ca, cb)
+    if out[str(device)] != out["cpu"]:
+        raise AssertionError(f"compare_correctness: card {out[str(device)]} != "
+                             f"cpu {out['cpu']}")
+    return {"rows": len(rows["label"]), **out[str(device)]}
+
+
 def lm_phases(device, card: str) -> dict:
-    """Phases 35-40 (ROADMAP A9): float32 without TF32 where the checks
-    hold float32; none of B1-B4 launches (their counts do not move)."""
+    """Phases 35-42 (ROADMAP A9, A9.4): float32 without TF32 where the
+    checks hold float32; none of B1-B4 launches (their counts do not
+    move)."""
     import torch
     from repro_torch.kernels.forest_infer import forest_infer
     from repro_torch.kernels.histogram import fused, histogram
@@ -5159,6 +5903,20 @@ def lm_phases(device, card: str) -> dict:
     trained["d_card_vs_cpu"] = lm_train_parity(device)
     seconds["lm_train"] = clock.perf() - t0
     emit(phase="lm_train", card=card, **trained, seconds=seconds["lm_train"])
+    torch.cuda.empty_cache()
+    t0 = clock.perf()
+    one = lm_mesh_one(device)
+    seconds["lm_mesh_one"] = clock.perf() - t0
+    emit(phase="lm_mesh_one", card=card, **one, seconds=seconds["lm_mesh_one"])
+    torch.cuda.empty_cache()
+    scratch = scratch_dir()
+    t0 = clock.perf()
+    try:
+        world = lm_mesh_world(device, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    seconds["lm_mesh_world"] = clock.perf() - t0
+    emit(phase="lm_mesh_world", card=card, **world, seconds=seconds["lm_mesh_world"])
     if counts() != before:
         raise AssertionError(f"the LM phases launched a B1-B4 kernel: "
                              f"{before} -> {counts()}")
@@ -5326,6 +6084,8 @@ def main() -> int:
          trees=rf.forest.n_trees, max_nodes=rf.forest.max_nodes,
          depth=rf.forest.depth,
          variants=check_variants(rf.forest, X_rf, device))
+    emit(phase="compare_correctness", card=card, a="gbt, device engine", b="rf",
+         **compare_models(trained, rf, valid, device))
 
     scratch = scratch_dir()
     try:

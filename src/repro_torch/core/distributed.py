@@ -13,10 +13,9 @@ The 2-D training grid composes both of the paper's distributions:
     mask: the delta-bit encoding of §3.9 restated).
 
 A ``Mesh`` is the port's ``jax.make_mesh((data, model), ("data",
-"model"))``: the ranks of the default process group as a data x model grid
-(rank r at row r // model, column r % model), one process group per model
-column (the data axis's reduce) and one per data row (the model axis's
-gather). Every rank calls ``DistributedGBT(cfg, mesh).fit`` with the full
+"model"))``: the port's one process mesh (``core.mesh.ProcessMesh``) over
+those two axes, rank r at row r // model, column r % model; the data
+axis's groups reduce, the model axis's gather. Every rank calls ``DistributedGBT(cfg, mesh).fit`` with the full
 arrays and takes its own block, as each shard of the reference's
 ``shard_map`` does. ``run_world`` starts a world on this machine (in
 process for one rank, spawned processes otherwise) and ``fit_on_world``
@@ -55,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.api import YdfError
+from repro_torch.core.mesh import ProcessMesh
 from repro_torch.core.tree import Forest, empty_forest
 from repro_torch.obs import clock, trace
 from repro_torch.obs.logs import build_training_logs, validate_training_logs
@@ -217,74 +217,18 @@ def _device(device) -> torch.device:
     return resolve_device(device)
 
 
-class Mesh:
-    """The ranks of the default process group as a (data, model) grid:
-    rank r at (r // model, r % model), ``device`` the device every tensor
-    of this rank lives on (None is cuda; the same device on every rank of a
-    one-card machine, never ``cuda:<rank>``).
-
-    Collectives: NCCL runs them on the device tensors. Gloo runs them on
-    host copies whenever the device is the card: a tensor is copied to the
-    host, reduced or gathered there and copied back, always, as the mesh's
-    ``host_staged`` says; the kernels still run on the card. Construction
-    is collective (every rank creates every group, in the same order).
-    """
+class Mesh(ProcessMesh):
+    """The (data, model) grid of the distributed GBT: a process mesh over
+    ("data", "model"), rank r at (r // model, r % model), with this rank's
+    ``data_index`` and ``model_index``. ``device`` is where every tensor of
+    this rank lives (None is cuda; the same device on every rank of a
+    one-card machine, never ``cuda:<rank>``); under gloo with the card
+    every collective is staged through the host (``host_staged``).
+    Construction is collective."""
 
     def __init__(self, data: int, model: int, device=None):
-        self.device = _device(device)
-        if not dist.is_initialized():
-            raise YdfError(
-                "Mesh needs an initialized default process group "
-                "(torch.distributed.init_process_group); run_world and "
-                "fit_on_world start one on this machine.")
-        world = dist.get_world_size()
-        if data < 1 or model < 1 or data * model != world:
-            raise YdfError(f"a ({data}, {model}) mesh needs a world of "
-                           f"{data * model} ranks, this one has {world}")
-        self.shape = {"data": data, "model": model}
-        self.backend = dist.get_backend()
-        self.rank = dist.get_rank()
-        self.data_index, self.model_index = divmod(self.rank, model)
-        self.host_staged = (self.backend == "gloo"
-                            and self.device.type == "cuda")
-        self._groups = {}
-        for j in range(model):      # reduce over "data": one model column
-            g = dist.new_group([i * model + j for i in range(data)])
-            if j == self.model_index:
-                self._groups["data"] = g
-        for i in range(data):       # gather over "model": one data row
-            g = dist.new_group([i * model + j for j in range(model)])
-            if i == self.data_index:
-                self._groups["model"] = g
-
-    def _out(self, t: torch.Tensor) -> torch.Tensor:
-        return t.cpu() if self.host_staged else t
-
-    def all_reduce(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
-        """SUM over ``axis`` ("data", "model", or None for the world)."""
-        x = self._out(t)
-        dist.all_reduce(x, group=self._groups.get(axis))
-        return x.to(self.device)
-
-    def all_gather(self, t: torch.Tensor, axis: str | None) -> torch.Tensor:
-        """(size of ``axis``, *t.shape): every rank's ``t`` in rank order
-        (``axis`` None: the world's)."""
-        x = self._out(t).contiguous()
-        size = (self.shape[axis] if axis is not None
-                else self.shape["data"] * self.shape["model"])
-        out = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(out, x, group=self._groups.get(axis))
-        return torch.stack(out).to(self.device)
-
-    def broadcast_flag(self, flag: bool) -> bool:
-        """Rank 0's ``flag`` on every rank."""
-        x = self._out(torch.tensor([int(flag)], dtype=torch.int32,
-                                   device=self.device))
-        dist.broadcast(x, src=0)
-        return bool(x.item())
-
-    def barrier(self) -> None:
-        self.all_reduce(torch.zeros(1, device=self.device), None)
+        super().__init__((data, model), ("data", "model"), device)
+        self.data_index, self.model_index = self.coords["data"], self.coords["model"]
 
 
 def default_backend(device, world_size: int) -> str:
@@ -412,8 +356,8 @@ def make_level_step(mesh: Mesh, cfg: DistGBTConfig, n_nodes: int,
         hist = mesh.all_reduce(hist, "data")          # example-parallel
         gain, feat_l, bin_ = best_split_gh(hist, cfg.min_examples, cfg.l2)
         # feature-parallel candidate exchange: 3 scalars per node per rank
-        gains = mesh.all_gather(gain, "model")        # (W, nodes)
-        fb = mesh.all_gather(torch.stack([feat_l, bin_]), "model")
+        gains = mesh.all_gather(gain[None], "model")  # (W, nodes)
+        fb = mesh.all_gather(torch.stack([feat_l, bin_])[None], "model")
         feats, bins = fb[:, 0], fb[:, 1]
         winner = torch.argmax(torch.where(torch.isfinite(gains), gains,
                                           float("-inf")), dim=0)

@@ -213,3 +213,21 @@ def evaluate_predictions(task: Task, pred: np.ndarray, y: np.ndarray, *,
         raise YdfError(f"Evaluation for task={task} not implemented.")
     return Evaluation(task=task, n_examples=n, metrics=m, confusion=confusion,
                       classes=classes, source=source)
+
+
+def compare_correctness(correct_a: np.ndarray, correct_b: np.ndarray,
+                        n_boot: int = 500, seed: int = 11) -> dict:
+    """Paired bootstrap comparison (§2.2): per-example correctness/score
+    vectors of two models on the SAME examples. Returns the mean difference,
+    its CI95, and P(a beats b) under resampling."""
+    if len(correct_a) != len(correct_b):
+        raise YdfError("compare_correctness requires predictions on the same "
+                       f"examples ({len(correct_a)} vs {len(correct_b)}).")
+    d = np.asarray(correct_a, np.float64) - np.asarray(correct_b, np.float64)
+    rng = np.random.default_rng(seed)
+    n = len(d)
+    means = np.array([d[rng.integers(0, n, n)].mean() for _ in range(n_boot)])
+    return {"mean_diff": float(d.mean()),
+            "ci95": (float(np.quantile(means, 0.025)),
+                     float(np.quantile(means, 0.975))),
+            "p_a_better": float((means > 0).mean())}

@@ -17,6 +17,12 @@ state), as plain data.
     ``strict=False``, leaves missing from the checkpoint keep the
     target's values (schema evolution).
   * retention: the last ``keep`` checkpoints.
+  * a state sharded over a mesh (``shardings``: a tree of
+    ``sharding.NamedSharding``) saves collectively: every rank gathers
+    the global arrays, rank 0 writes them, and the ranks meet at a
+    barrier once the checkpoint is on disk. ``restore`` with
+    ``shardings`` reads the global arrays and keeps this rank's blocks:
+    the mesh that restores need not be the one that saved (RESHARDING).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from repro_torch.core.api import YdfError
 from repro_torch.models.params import DTYPES
 from repro_torch.obs import clock
+from repro_torch.sharding import tree_gather, tree_shard
 
 # dtypes numpy cannot hold: stored as unsigned words of their width,
 # viewed through a torch integer dtype of that width
@@ -102,17 +109,30 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._mesh = None             # of an in-flight sharded save
 
     def path(self, step: int) -> str:
         """The directory of ``step``'s checkpoint."""
         return os.path.join(self.dir, f"step_{step:010d}")
 
     # ---------------------------------------------------------- save
-    def save(self, step: int, state, extra: dict | None = None) -> str:
-        return self._write(step, self._snapshot(state), extra or {})
+    def save(self, step: int, state, extra: dict | None = None, *,
+             shardings=None) -> str:
+        """Write ``state`` (this rank's blocks under ``shardings``, which
+        makes the save collective); returns the checkpoint's directory."""
+        self.save_async(step, state, extra, shardings=shardings)
+        self.wait()
+        return self.path(step)
 
-    def save_async(self, step: int, state, extra: dict | None = None) -> None:
+    def save_async(self, step: int, state, extra: dict | None = None, *,
+                   shardings=None) -> None:
         self.wait()  # one in-flight save at a time
+        mesh = _mesh_of(shardings)
+        if mesh is not None:
+            state = tree_gather(state, shardings)
+        self._mesh = mesh
+        if mesh is not None and mesh.rank != 0:
+            return                    # rank 0 writes
         host = self._snapshot(state)  # a copy, taken now
 
         def write():
@@ -125,10 +145,14 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self) -> None:
-        """Block until the in-flight save is written; raise its error."""
+        """Block until the in-flight save is written (after a sharded save,
+        on every rank); raise its error."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        mesh, self._mesh = self._mesh, None
+        if mesh is not None:
+            mesh.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -171,10 +195,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int | None = None, *, target=None, strict: bool = True,
-                device=None):
+                device=None, shardings=None):
         """Load a checkpoint: (state, manifest). ``target``: a template tree
         (partial restore and dtype casts); the arrays land on ``device``
-        (None is cuda)."""
+        (None is cuda); with ``shardings`` each leaf is this rank's block."""
+        if shardings is None:
+            return self._restore(step, target, strict, device)
+        from repro_torch.core.engines import resolve_device
+        dev = resolve_device(device)
+        state, manifest = self._restore(step, target, strict, "cpu")
+        return _to(tree_shard(state, shardings), dev), manifest
+
+    def _restore(self, step, target, strict: bool, device):
         from repro_torch.core.engines import resolve_device
         dev = resolve_device(device)
         if step is None:
@@ -207,8 +239,24 @@ class CheckpointManager:
                 out[name] = t_leaf
         return _unflatten(out), manifest
 
-    def restore_or_init(self, init_fn, *, device=None):
+    def restore_or_init(self, init_fn, *, device=None, shardings=None):
         step = self.latest_step()
         if step is None:
             return init_fn(), None
-        return self.restore(step, device=device)
+        return self.restore(step, device=device, shardings=shardings)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _mesh_of(shardings):
+    """The mesh of a tree of NamedShardings (None for none)."""
+    if shardings is None:
+        return None
+    if isinstance(shardings, dict):
+        return next((m for m in map(_mesh_of, shardings.values()) if m is not None),
+                    None)
+    return shardings.mesh

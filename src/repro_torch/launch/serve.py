@@ -3,6 +3,10 @@ reporting tokens/s. CPU-sized with --smoke; runs on the card unless
 ``--device cpu``. Weights are random, drawn from ``--seed``.
 
     python -m repro_torch.launch.serve --arch qwen2-1.5b
+
+``--mesh single|multi`` serves sharded over the production mesh under the
+serving rules, in the world ``torchrun`` starts (env:// rendezvous);
+outside a world of 256 (512) ranks it raises ``YdfError`` naming the size.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"])
     args = ap.parse_args(argv)
 
     import torch
@@ -32,6 +37,12 @@ def main(argv=None):
     from repro_torch.serving.decode import greedy_generate
 
     device = resolve_device(args.device)
+    mesh = rules = None
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import production_mesh_from_env
+        from repro_torch.sharding import rules_for
+        mesh = production_mesh_from_env(multi_pod=args.mesh == "multi", device=device)
+        rules, device = rules_for("serve"), mesh.device   # this rank's card
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -43,7 +54,12 @@ def main(argv=None):
                           device=device)
 
     t0 = clock.perf()
-    toks = greedy_generate(params, batch, cfg, args.gen, device=device)
+    if mesh is not None:
+        from repro_torch.serving.decode import make_prefill
+        from repro_torch.sharding import tree_shard
+        params = tree_shard(params, make_prefill(cfg, shape, mesh, rules,
+                                                 device=device).param_shardings)
+    toks = greedy_generate(params, batch, cfg, args.gen, mesh, rules, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = clock.perf() - t0

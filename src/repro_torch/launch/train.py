@@ -1,14 +1,17 @@
-"""Training launcher: ``train_loop`` for one architecture on one device,
-with checkpoints under ``--ckpt/<arch>``. CPU-sized with --smoke; runs on
-the card unless ``--device cpu``. Weights are random, drawn from
-``--seed``; the data is the synthetic stream of ``data.lm_data``.
+"""Training launcher: ``train_loop`` for one architecture, with checkpoints
+under ``--ckpt/<arch>``. CPU-sized with --smoke; runs on the card unless
+``--device cpu``. Weights are random, drawn from ``--seed``; the data is
+the synthetic stream of ``data.lm_data``.
 
     python -m repro_torch.launch.train --arch qwen2-1.5b --smoke --steps 50
     python -m repro_torch.launch.train --arch qwen2-1.5b --batch 4 --seq 2048
+    torchrun --nproc-per-node ... -m repro_torch.launch.train --arch qwen3-8b --mesh single
 
-``--mesh single|multi`` (sharded training) comes with ROADMAP A9.4 and
-raises ``YdfError``; so does ``--overlap-flags``, which set XLA's TPU
-latency-hiding flags in the reference and has no counterpart here.
+``--mesh single|multi`` trains sharded over the production mesh (16x16 or
+2x16x16) under the training rules, in the world ``torchrun`` starts (env://
+rendezvous); outside a world of 256 (512) ranks it raises ``YdfError``
+naming the size. ``--overlap-flags`` set XLA's TPU latency-hiding flags in
+the reference and has no counterpart here: it raises.
 """
 from __future__ import annotations
 
@@ -34,9 +37,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     from repro_torch.core.api import YdfError
-    if args.mesh != "none":
-        raise YdfError(f"--mesh {args.mesh}: sharded training over a mesh comes "
-                       "with ROADMAP A9.4; the port trains on one device")
     if args.overlap_flags:
         raise YdfError("--overlap-flags sets XLA's TPU latency-hiding scheduler "
                        "flags, which have no counterpart in the PyTorch port")
@@ -56,9 +56,15 @@ def main(argv=None) -> dict:
         shape = ShapeConfig("custom", "train", args.seq or shape.seq_len,
                             args.batch or shape.global_batch)
 
+    mesh = rules = None
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import production_mesh_from_env
+        from repro_torch.sharding import rules_for
+        mesh = production_mesh_from_env(multi_pod=args.mesh == "multi", device=device)
+        rules, device = rules_for("train"), mesh.device   # this rank's card
     out = train_loop(cfg, shape, os.path.join(args.ckpt, args.arch),
                      LoopConfig(total_steps=args.steps, seed=args.seed),
-                     device=device)
+                     mesh=mesh, rules=rules, device=device)
     where = "cpu" if device.type == "cpu" else _card_name(device)
     print(f"done: {out['final_step']} steps on {where}; "
           f"last losses: {out['losses'][-3:]}")

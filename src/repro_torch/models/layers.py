@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -14,19 +15,39 @@ from repro_torch.models.params import ParamSpec, torch_dtype
 class Ctx:
     """Runtime context threaded through apply functions.
 
-    One device and no mesh: sharding (logical axes mapped onto a mesh) is a
-    later slice, so the reference's ``ctx.constrain`` calls have no
-    counterpart here. ``moe_stats``, when a dict, sums each MoE block's
-    (token, choice) pairs under ``"routed"`` (an int) and those that found
-    a capacity slot under ``"kept"`` (a device tensor).
+    ``moe_stats``, when a dict, sums each MoE block's (token, choice) pairs
+    under ``"routed"`` (an int) and those that found a capacity slot under
+    ``"kept"`` (a device tensor).
+
+    Under a mesh (``core.mesh.ProcessMesh``, with the sharding ``rules``)
+    each rank runs the one-device code on its rows of the batch, split over
+    ``batch_axes``; the steps gather what they need around it
+    (``train.step``, ``serving.decode``). An MoE block forms its groups over
+    the global batch, and ``cache_io`` (serving under a mesh) gathers a
+    decode cache's layer before a step uses it and writes this rank's block
+    back. ``constrain`` is the identity: the port places tensors by
+    ``sharding.NamedSharding`` where a step needs them, with no compiler to
+    constrain.
     """
     cfg: ModelConfig
     device: torch.device
     moe_stats: dict | None = None
+    mesh: Any = None
+    rules: Mapping[str, tuple[str, ...]] | None = None
+    batch_axes: tuple[str, ...] = ()
+    cache_io: Any = None
 
     @property
     def dtype(self) -> torch.dtype:
         return torch_dtype(self.cfg.dtype)
+
+    @property
+    def batch_shards(self) -> int:
+        """How many blocks the global batch is split into."""
+        return self.mesh.group_size(self.batch_axes) if self.batch_axes else 1
+
+    def constrain(self, x, logical):
+        return x
 
 
 # ---------------------------------------------------------------- norms

@@ -428,8 +428,10 @@ def _forward_rwkv(params, batch, ctx: Ctx, return_cache: bool):
 # Loss
 # =====================================================================
 
-def loss_fn(params, batch, ctx: Ctx):
-    """Mean CE over label positions (+ MoE aux). Returns (loss, metrics)."""
+def loss_terms(params, batch, ctx: Ctx):
+    """(sum of the weighted CE over label positions, the sum of the weights,
+    the MoE aux loss): ``loss_fn``'s parts, which a sharded step combines
+    over the batch shards."""
     cfg = ctx.cfg
     h, _, aux = forward(params, batch, ctx)
     if cfg.family == "vlm":  # loss on text positions only
@@ -440,6 +442,12 @@ def loss_fn(params, batch, ctx: Ctx):
         weights = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
     un = unembed_matrix(params["embed"], ctx)
     sum_loss, sum_w = chunked_softmax_xent(h, un, labels, weights, ctx)
+    return sum_loss, sum_w, aux
+
+
+def loss_fn(params, batch, ctx: Ctx):
+    """Mean CE over label positions (+ MoE aux). Returns (loss, metrics)."""
+    sum_loss, sum_w, aux = loss_terms(params, batch, ctx)
     ce = sum_loss / torch.clamp(sum_w, min=1.0)
     return ce + aux, {"ce": ce, "aux": aux, "tokens": sum_w}
 
@@ -532,14 +540,17 @@ def _cache_insert(cache_l, new, pos):
     cache_l[rows, pos.long()] = to_cache_dtype(new[:, 0], cache_l.dtype)
 
 
-def _check_positions(cache):
+def _check_positions(cache, ctx: Ctx):
     """The reference clamps an out-of-range write to the cache's last slot;
-    the port refuses it (one host read of the positions a step). The ssm
-    family's states have no sequence axis: any position fits."""
+    the port refuses it (one host read of the positions a step; under a
+    mesh, the largest over the batch shards, so every rank refuses alike).
+    The ssm family's states have no sequence axis: any position fits."""
     if "k" not in cache:
         return
-    max_len = cache["k"].shape[2]
-    last = int(cache["pos"].max())
+    if ctx.cache_io is None:
+        max_len, last = cache["k"].shape[2], int(cache["pos"].max())
+    else:
+        max_len, last = ctx.cache_io.positions(cache)
     if last >= max_len:
         raise YdfError(f"decode position {last} is past the cache's "
                        f"{max_len} slots; grow the cache (init_cache) first")
@@ -553,7 +564,7 @@ def decode_step(params, batch, cache, ctx: Ctx):
     """batch: {'token': (B,1) int32}. Returns (logits (B,V) fp32, cache);
     the cache's tensors are updated in place and ``pos`` advanced."""
     fam = _check_family(ctx.cfg)
-    _check_positions(cache)
+    _check_positions(cache, ctx)
     if fam == "audio":
         h, cache = _decode_whisper(params, batch, cache, ctx)
     elif fam == "hybrid":
@@ -564,6 +575,21 @@ def decode_step(params, batch, cache, ctx: Ctx):
         h, cache = _decode_attn(params, batch, cache, ctx)
     logits = logits_last(h[:, -1, :], unembed_matrix(params["embed"], ctx), ctx)
     return logits, cache
+
+
+def _cache_at(cache, key: str, idx, ctx: Ctx):
+    """``cache[key][idx]``, the layer's tensor a decode step reads and
+    updates in place: a view on one device; under a mesh (``ctx.cache_io``)
+    the layer gathered over its length and head shards, this rank's batch
+    rows, which ``_cache_done`` writes back."""
+    if ctx.cache_io is None:
+        return cache[key][idx]
+    return ctx.cache_io.load(cache, key, idx)
+
+
+def _cache_done(cache, key: str, idx, layer, ctx: Ctx) -> None:
+    if ctx.cache_io is not None:
+        ctx.cache_io.store(cache, key, idx, layer)
 
 
 def _decode_embed(params, batch, cache, ctx: Ctx):
@@ -591,11 +617,13 @@ def _decode_attn(params, batch, cache, ctx: Ctx):
     layers = params["layers"]
     for i in range(_n_layers(layers)):
         p = _layer(layers, i)
-        k_c, v_c = cache["k"][i], cache["v"][i]
+        k_c, v_c = _cache_at(cache, "k", i, ctx), _cache_at(cache, "v", i, ctx)
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = qkv_project(p["attn"], h, h, ctx, pos2, pos2)
         _cache_insert(k_c, k, pos)
         _cache_insert(v_c, v, pos)
+        _cache_done(cache, "k", i, k_c, ctx)
+        _cache_done(cache, "v", i, v_c, ctx)
         a = decode_attention(q, k_c, v_c, pos, ctx)
         a = out_project(p["attn"], a, ctx)
         if cfg.parallel_block:
@@ -618,15 +646,18 @@ def _decode_whisper(params, batch, cache, ctx: Ctx):
     layers = params["dec_layers"]
     for i in range(_n_layers(layers)):
         p = _layer(layers, i)
-        k_c, v_c = cache["k"][i], cache["v"][i]
+        k_c, v_c = _cache_at(cache, "k", i, ctx), _cache_at(cache, "v", i, ctx)
         h = layernorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = qkv_project(p["self_attn"], h, h, ctx, pos2, pos2, use_rope=False)
         _cache_insert(k_c, k, pos)
         _cache_insert(v_c, v, pos)
+        _cache_done(cache, "k", i, k_c, ctx)
+        _cache_done(cache, "v", i, v_c, ctx)
         x = x + out_project(p["self_attn"], decode_attention(q, k_c, v_c, pos, ctx), ctx)
         h = layernorm(p["ln2"], x, cfg.norm_eps)
         cq, _, _ = qkv_project(p["cross_attn"], h, h[:, :0], ctx, use_rope=False)
-        ca = decode_attention(cq, cache["xk"][i], cache["xv"][i], pos, ctx,
+        ca = decode_attention(cq, _cache_at(cache, "xk", i, ctx),
+                              _cache_at(cache, "xv", i, ctx), pos, ctx,
                               valid_len=cfg.enc_seq)
         x = x + out_project(p["cross_attn"], ca, ctx)
         x = x + mlp(p["mlp"], layernorm(p["ln3"], x, cfg.norm_eps), ctx)
@@ -645,17 +676,22 @@ def _decode_zamba(params, batch, cache, ctx: Ctx):
         p_g = _layer(groups, g)
         for i in range(_n_layers(p_g)):
             p_l = _layer(p_g, i)
-            conv, ssm = cache["conv"][g, i], cache["ssm"][g, i]
+            conv = _cache_at(cache, "conv", (g, i), ctx)
+            ssm = _cache_at(cache, "ssm", (g, i), ctx)
             y, (conv2, ssm2) = ssm_mod.mamba2_step(
                 p_l["m"], rmsnorm(p_l["ln"], x, cfg.norm_eps), ctx, conv, ssm)
             conv.copy_(conv2)
             ssm.copy_(ssm2)
+            _cache_done(cache, "conv", (g, i), conv, ctx)
+            _cache_done(cache, "ssm", (g, i), ssm, ctx)
             x = x + y
-        k_c, v_c = cache["k"][g], cache["v"][g]
+        k_c, v_c = _cache_at(cache, "k", g, ctx), _cache_at(cache, "v", g, ctx)
         h = rmsnorm(shared["ln1"], x, cfg.norm_eps)
         q, k, v = qkv_project(shared["attn"], h, h, ctx, pos2, pos2)
         _cache_insert(k_c, k, pos)
         _cache_insert(v_c, v, pos)
+        _cache_done(cache, "k", g, k_c, ctx)
+        _cache_done(cache, "v", g, v_c, ctx)
         x = x + out_project(shared["attn"], decode_attention(q, k_c, v_c, pos, ctx), ctx)
         x = x + mlp(shared["mlp"], rmsnorm(shared["ln2"], x, cfg.norm_eps), ctx)
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -669,7 +705,8 @@ def _decode_rwkv(params, batch, cache, ctx: Ctx):
     layers = params["layers"]
     for i in range(_n_layers(layers)):
         p = _layer(layers, i)
-        tsh, wkv, csh = cache["tshift"][i], cache["wkv"][i], cache["cshift"][i]
+        tsh, wkv, csh = (_cache_at(cache, key, i, ctx)
+                         for key in ("tshift", "wkv", "cshift"))
         t, (tsh2, wkv2) = ssm_mod.rwkv6_time_step(
             p["time"], layernorm(p["ln1"], x, cfg.norm_eps), ctx, tsh, wkv)
         x = x + t
@@ -679,6 +716,8 @@ def _decode_rwkv(params, batch, cache, ctx: Ctx):
         tsh.copy_(tsh2)
         wkv.copy_(wkv2)
         csh.copy_(csh2)
+        for key, layer in (("tshift", tsh), ("wkv", wkv), ("cshift", csh)):
+            _cache_done(cache, key, i, layer, ctx)
     h = layernorm(params["final_norm"], x, cfg.norm_eps)
     cache["pos"] = pos + 1
     return h, cache

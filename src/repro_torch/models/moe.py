@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.mesh import gather_rows
 from repro_torch.models.layers import Ctx, _act, largest_divisor_leq, mlp
 from repro_torch.models.params import ParamSpec
 
@@ -81,7 +82,26 @@ def dispatch_tensors(expert, slot, keep, weight, n_experts: int, capacity: int):
 
 
 def moe_block(p, x, ctx: Ctx):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).
+
+    The groups are formed over the global batch: under a mesh whose batch
+    shards each hold a whole number of groups, every rank routes its own
+    (the aux loss is then the mean over its groups); where a group spans
+    shards, the rank gathers the global batch's tokens over the batch axes
+    (differentiably), routes all of them as one device would, and keeps its
+    rows (the aux loss is the global one)."""
+    n = ctx.batch_shards
+    if n > 1:
+        B, S, D = x.shape
+        if (B * S) % largest_divisor_leq(n * B * S, ctx.cfg.moe_group_size):
+            xg = gather_rows(x.reshape(B * S, D), ctx.mesh, ctx.batch_axes)
+            out, aux = _moe_block(p, xg.reshape(1, n * B * S, D), ctx)
+            i = ctx.mesh.block_index(ctx.batch_axes)
+            return out[0, i * B * S:(i + 1) * B * S].reshape(B, S, D), aux
+    return _moe_block(p, x, ctx)
+
+
+def _moe_block(p, x, ctx: Ctx):
     cfg = ctx.cfg
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k

@@ -269,12 +269,18 @@ def test_decode_past_the_cache_is_refused(built):
 
 
 def test_mesh_and_rules_are_refused(built):
+    """A mesh must be a process mesh, and rules come with one (serving on a
+    mesh: tests/test_torch_lm_mesh.py)."""
     _, cfg, _, tp, _, tb = built("qwen2-1.5b")
     shape = ShapeConfig("p", "prefill", S, B)
-    for call in (lambda: decode.make_decode_step(cfg, shape, mesh=object(), device="cpu"),
-                 lambda: decode.make_prefill(cfg, shape, rules={}, device="cpu"),
-                 lambda: decode.greedy_generate(tp, tb, cfg, 2, mesh=object(), device="cpu")):
-        with pytest.raises(YdfError, match="A9.4"):
+    for call, match in (
+            (lambda: decode.make_decode_step(cfg, shape, mesh=object(), rules={},
+                                             device="cpu"), "not a process mesh"),
+            (lambda: decode.make_prefill(cfg, shape, rules={}, device="cpu"),
+             "rules need a mesh"),
+            (lambda: decode.greedy_generate(tp, tb, cfg, 2, mesh=object(), device="cpu"),
+             "not a process mesh")):
+        with pytest.raises(YdfError, match=match):
             call()
 
 

@@ -377,7 +377,8 @@ def test_launch_train_main_on_the_cpu(tmp_path):
 
 def test_launch_train_refusals(tmp_path):
     base = ["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu", "--ckpt", str(tmp_path)]
-    for extra, match in ((["--mesh", "single"], "A9.4"), (["--mesh", "multi"], "A9.4"),
+    for extra, match in ((["--mesh", "single"], "needs a world of 256 ranks; this one has 1"),
+                         (["--mesh", "multi"], "needs a world of 512 ranks; this one has 1"),
                          (["--overlap-flags"], "no counterpart")):
         with pytest.raises(YdfError, match=match):
             launch_train.main(base + extra)
@@ -385,11 +386,15 @@ def test_launch_train_refusals(tmp_path):
 
 
 def test_mesh_and_rules_are_refused(tmp_path):
-    for call in (lambda: make_train_step(CFG, SHAPE, mesh=object(), device="cpu"),
-                 lambda: make_train_step(CFG, SHAPE, rules={}, device="cpu"),
-                 lambda: train_loop(CFG, SHAPE, str(tmp_path), LoopConfig(total_steps=1),
-                                    mesh=object(), device="cpu")):
-        with pytest.raises(YdfError, match="A9.4"):
+    """A mesh must be a process mesh, and rules come with one (training on a
+    mesh: tests/test_torch_lm_mesh.py)."""
+    for call, match in (
+            (lambda: make_train_step(CFG, SHAPE, mesh=object(), rules={}, device="cpu"),
+             "not a process mesh"),
+            (lambda: make_train_step(CFG, SHAPE, rules={}, device="cpu"), "rules need a mesh"),
+            (lambda: train_loop(CFG, SHAPE, str(tmp_path), LoopConfig(total_steps=1),
+                                mesh=object(), device="cpu"), "not a process mesh")):
+        with pytest.raises(YdfError, match=match):
             call()
 
 
