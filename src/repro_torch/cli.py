@@ -266,21 +266,35 @@ def cmd_profile(args):
     inference pass under the tracer, write a Chrome trace-event file
     (loadable in chrome://tracing / ui.perfetto.dev) and print the phase
     summary — where the time went, phase by phase, subsystem by
-    subsystem. No flags change what runs; profiling observes, it does
+    subsystem. On a CUDA device the device's operations, from
+    ``torch.profiler``'s records, fill a lane of their own on the spans'
+    timeline. No flags change what runs; profiling observes, it does
     not steer."""
+    import contextlib
+
+    import torch
+
     from repro_torch.data.io import read_dataset
     from repro_torch.obs import trace
-    from repro_torch.obs.export import (phase_summary, profile_dict,
-                                  write_chrome_trace)
+    from repro_torch.obs.export import (device_ops, phase_summary,
+                                        profile_dict, write_chrome_trace)
     data = read_dataset(args.dataset)
+    on_card = torch.device(args.device).type == "cuda"
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CUDA])
+    else:
+        prof = contextlib.nullcontext()
     if args.what == "train":
         from repro_torch.core import Task, get_learner
         cls = get_learner(args.learner)
         learner = cls(label=args.label, task=Task(args.task.upper()),
                       seed=args.seed, device=args.device,
                       **_parse_hparams(args.hparam))
-        with trace.capture() as tracer:
+        with prof, trace.capture() as tracer:
             model = learner.train(data)
+            if on_card:
+                torch.cuda.synchronize()
         if args.output:
             model.save(args.output)
             print(f"model written to {args.output}")
@@ -288,12 +302,16 @@ def cmd_profile(args):
         from repro_torch.core import Model
         model = Model.load(args.model)
         data.pop(model.label, None)
-        with trace.capture() as tracer:
+        with prof, trace.capture() as tracer:
             for _ in range(max(1, args.repetitions)):
                 model.predict(data, device=args.device)
-    write_chrome_trace(args.trace, tracer)
+            if on_card:
+                torch.cuda.synchronize()
+    ops = device_ops(prof, tracer) if on_card else []
+    write_chrome_trace(args.trace, tracer, ops)
     print(f"chrome trace ({tracer.span_count()} spans, "
-          f"{len(tracer.events)} events) written to {args.trace}")
+          f"{len(tracer.events)} events, {len(ops)} device operations) "
+          f"written to {args.trace}")
     if args.json:
         print(json.dumps(profile_dict(tracer), indent=1))
         return

@@ -202,16 +202,29 @@ def _compile_forest_engine(forest: Forest, engine: str | None,
     if engine == "ref":
         ops.device_soa(forest, device)   # upload once, now
         return Engine(
-            "ref",
-            lambda X: ops.forest_predict(forest, X, "ref", device).cpu().numpy(),
+            "ref", lambda X: _traverse(forest, X, "ref", device),
             note=f"plain PyTorch gather traversal on {device}", **kw)
     forest_infer.library()               # build + load now: RuntimeError here
     ops.device_packed(forest, device)    # pack + upload once, now
     return Engine(
-        "cuda",
-        lambda X: ops.forest_predict(forest, X, "cuda", device).cpu().numpy(),
+        "cuda", lambda X: _traverse(forest, X, "cuda", device),
         note="hand-written CUDA traversal over depth-packed blocks (sm_90a)",
         fatal_errors=True, **kw)
+
+
+def _traverse(forest: Forest, X: np.ndarray, impl: str,
+              device: torch.device) -> np.ndarray:
+    """The ``ref`` and ``cuda`` engines' call: upload and launch
+    (``engines/traverse``), then the (N, T, O) scores back to the host
+    (``engines/copy_back``, which waits for the device), with the bytes
+    each way counted."""
+    with trace.span("engines/traverse", rows=len(X)):
+        out = ops.forest_predict(forest, X, impl, device)
+    with trace.span("engines/copy_back", rows=len(X)):
+        host = out.cpu().numpy()
+    trace.count("engines/h2d_bytes", X.nbytes)
+    trace.count("engines/d2h_bytes", host.nbytes)
+    return host
 
 
 # ------------------------------------------------- compiled predictor (§5.1)
@@ -228,7 +241,8 @@ class CompiledPredictor:
     """
     engine: Engine
     encoder: BatchEncoder
-    # a picklable head (models.py's _GbtFinalize, _RfFinalize, ...)
+    # a picklable head: models.py's _GbtFinalize, _RfFinalize, ... in a
+    # _TracedHead
     finalize: Callable[[np.ndarray], np.ndarray]
     compile_s: float = 0.0
     # trailing shape of one prediction: () for regression, (n_classes,) for
@@ -241,7 +255,11 @@ class CompiledPredictor:
         return self.engine.name
 
     def encode(self, dataset) -> np.ndarray:
-        return self.encoder.encode(dataset)
+        with trace.span("engines/encode") as sp:
+            X = self.encoder.encode(dataset)
+            if sp is not None:
+                sp.args["rows"] = len(X)
+        return X
 
     def per_tree(self, X: np.ndarray) -> np.ndarray:
         # engine failures surface TYPED: the serving front-end routes
@@ -271,6 +289,17 @@ class CompiledPredictor:
         return self.predict_encoded(self.encode(dataset))
 
 
+@dataclass
+class _TracedHead:
+    """The model's aggregation and activation head in an
+    ``engines/finalize`` span; picklable as the head is."""
+    head: Callable[[np.ndarray], np.ndarray]
+
+    def __call__(self, per_tree: np.ndarray) -> np.ndarray:
+        with trace.span("engines/finalize", rows=len(per_tree)):
+            return self.head(per_tree)
+
+
 def compile_predictor(model, engine: str | None = None,
                       device=None) -> CompiledPredictor:
     """Compile ``model`` into a CompiledPredictor on ``device`` (None ->
@@ -289,7 +318,7 @@ def compile_predictor(model, engine: str | None = None,
         np.float32))
     return CompiledPredictor(engine=eng,
                              encoder=BatchEncoder(model.spec, model.features),
-                             finalize=finalize,
+                             finalize=_TracedHead(finalize),
                              compile_s=clock.perf() - t0,
                              out_shape=tuple(np.asarray(probe).shape[1:]))
 

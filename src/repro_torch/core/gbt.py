@@ -211,33 +211,40 @@ class GradientBoostedTreesLearner(Learner):
                 bag = w if hp.subsample >= 1.0 else w * (rng.random(N) < hp.subsample)
                 for k in range(K):
                     t = it * K + k
-                    stats = np.stack([
-                        g[:, k] * bag,
-                        (h[:, k] if hp.use_hessian_gain else np.ones(N)) * bag,
-                        h[:, k] * bag,
-                        bag,
-                    ], axis=1).astype(np.float64)
+                    with trace.span("gbt/stats", tree=t):
+                        stats = np.stack([
+                            g[:, k] * bag,
+                            (h[:, k] if hp.use_hessian_gain else np.ones(N))
+                            * bag,
+                            h[:, k] * bag,
+                            bag,
+                        ], axis=1).astype(np.float64)
                     with trace.span("gbt/tree", tree=t, iteration=it):
                         node_of = grow_tree(forest, t, sub_td.binned,
                                             sub_td.X_raw, stats, bag > 0,
                                             leaf_fn, gp, rng,
                                             sub_td.num_lo, sub_td.num_hi)
-                    vals = forest.leaf_value[t, np.maximum(node_of, 0), 0]
-                    upd = np.where(node_of >= 0, vals, 0.0)
-                    if hp.subsample < 1.0:  # OOB examples still move (predict path)
-                        oob = (bag <= 0)
-                        if oob.any():
-                            tr = predict_raw(_one_tree(forest, t), sub_td.X_raw[oob])
-                            upd = upd.copy()
-                            upd[oob] = tr[:, 0, 0]
-                    pred[:, k] += upd
-                    if pred_v is not None:
-                        pv = predict_raw(_one_tree(forest, t), Xv)[:, 0, 0]
-                        pred_v[:, k] += pv
+                    # the leaf gather and the prediction updates
+                    with trace.span("gbt/update", tree=t):
+                        vals = forest.leaf_value[t, np.maximum(node_of, 0), 0]
+                        upd = np.where(node_of >= 0, vals, 0.0)
+                        # OOB examples still move (predict path)
+                        if hp.subsample < 1.0:
+                            oob = (bag <= 0)
+                            if oob.any():
+                                tr = predict_raw(_one_tree(forest, t),
+                                                 sub_td.X_raw[oob])
+                                upd = upd.copy()
+                                upd[oob] = tr[:, 0, 0]
+                        pred[:, k] += upd
+                        if pred_v is not None:
+                            pv = predict_raw(_one_tree(forest, t), Xv)[:, 0, 0]
+                            pred_v[:, k] += pv
                 trees_done = it + 1
-                train_losses.append(loss.value(pred, y, w))
+                with trace.span("gbt/loss", iteration=it):
+                    train_losses.append(loss.value(pred, y, w))
+                    vl = None if pred_v is None else loss.value(pred_v, yv, wv)
                 if pred_v is not None:
-                    vl = loss.value(pred_v, yv, wv)
                     valid_losses.append(vl)
                     if vl < best_loss - 1e-9:
                         best_loss, best_t = vl, it + 1

@@ -304,72 +304,79 @@ def _level_step(cfg: _StepConfig, codes, nbins, iscat, stats,
     kar = torch.arange(K, device=dev)[:, None]
 
     # 1. candidate features per (tree, slot), keyed by (tree, node id)
-    if cfg.sample:
-        fsel = keyed_feature_select_torch(
-            cfg.sampling_key, tree_ids[:, None], slot_node.clamp(min=0),
-            cfg.F, cfg.kf)                                     # (K, P, kf)
-    else:
-        fsel = torch.arange(cfg.F, device=dev).expand(K, P, cfg.F)
+    with trace.span("grower_device/candidates"):
+        if cfg.sample:
+            fsel = keyed_feature_select_torch(
+                cfg.sampling_key, tree_ids[:, None], slot_node.clamp(min=0),
+                cfg.F, cfg.kf)                                     # (K, P, kf)
+        else:
+            fsel = torch.arange(cfg.F, device=dev).expand(K, P, cfg.F)
 
     # 2. best split per slot, W slots at a time (bounds the histogram)
-    W = min(P, _W_CAP)
-    outs = []
-    for g0 in range(0, P, W):
-        loc = torch.where((slot_of >= g0) & (slot_of < g0 + W),
-                          slot_of - g0, -1)
-        outs.append(_chunk_best(cfg, codes, nbins, iscat, stats,
-                                fsel[:, g0:g0 + W], loc, W))
-    gain, feat_w, sbin_w, iscat_w, tbl, ps = (
-        torch.cat([o[i] for o in outs], dim=1) if len(outs) > 1
-        else outs[0][i] for i in range(6))
+    with trace.span("grower_device/split_search"):
+        W = min(P, _W_CAP)
+        outs = []
+        for g0 in range(0, P, W):
+            loc = torch.where((slot_of >= g0) & (slot_of < g0 + W),
+                              slot_of - g0, -1)
+            outs.append(_chunk_best(cfg, codes, nbins, iscat, stats,
+                                    fsel[:, g0:g0 + W], loc, W))
+        gain, feat_w, sbin_w, iscat_w, tbl, ps = (
+            torch.cat([o[i] for o in outs], dim=1) if len(outs) > 1
+            else outs[0][i] for i in range(6))
 
     # 3. validity + child allocation (frontier order, budget-capped). The
     # gain floor is scale-aware (splitters.REL_GAIN_EPS): float32 noise
     # around a true gain of 0 must not read as a valid split.
-    floor = torch.clamp_min(_REL_EPS * ps.abs(), cfg.min_gain)
-    valid = (gain > floor) & torch.isfinite(gain) & (slot_node >= 0)
-    vi = valid.to(torch.int64)
-    rank = torch.cumsum(vi, dim=1) - vi                       # exclusive
-    valid &= nn[:, None] + 2 * (rank + 1) <= cfg.max_nodes
-    left_id = torch.where(valid, nn[:, None] + 2 * rank, -1)
-    nv = valid.sum(dim=1)
-    nn = nn + 2 * nv
-    depth = depth + (nv > 0).to(depth.dtype)
+    with trace.span("grower_device/allocate"):
+        floor = torch.clamp_min(_REL_EPS * ps.abs(), cfg.min_gain)
+        valid = (gain > floor) & torch.isfinite(gain) & (slot_node >= 0)
+        vi = valid.to(torch.int64)
+        rank = torch.cumsum(vi, dim=1) - vi                       # exclusive
+        valid &= nn[:, None] + 2 * (rank + 1) <= cfg.max_nodes
+        left_id = torch.where(valid, nn[:, None] + 2 * rank, -1)
+        nv = valid.sum(dim=1)
+        nn = nn + 2 * nv
+        depth = depth + (nv > 0).to(depth.dtype)
 
     # 4. write the chosen conditions into the device forest arrays
-    pidx = torch.where(valid, slot_node, M)                   # M: the sink
-    fa.feature[kar, pidx] = feat_w
-    fa.split_bin[kar, pidx] = sbin_w
-    fa.left_child[kar, pidx] = left_id
-    fa.gain[kar, pidx] = torch.clamp_min(gain, 0.0)
-    bits = 1 << torch.arange(32, device=dev)
-    packed = (tbl.reshape(K, P, MASK_WORDS, 32).to(torch.int64)
-              * bits).sum(dim=3)                              # uint32 words
-    cidx = torch.where(valid & iscat_w, slot_node, M)
-    fa.cat_mask[kar, cidx] = packed
+    with trace.span("grower_device/write"):
+        pidx = torch.where(valid, slot_node, M)                   # M: the sink
+        fa.feature[kar, pidx] = feat_w
+        fa.split_bin[kar, pidx] = sbin_w
+        fa.left_child[kar, pidx] = left_id
+        fa.gain[kar, pidx] = torch.clamp_min(gain, 0.0)
+        bits = 1 << torch.arange(32, device=dev)
+        packed = (tbl.reshape(K, P, MASK_WORDS, 32).to(torch.int64)
+                  * bits).sum(dim=3)                             # uint32 words
+        cidx = torch.where(valid & iscat_w, slot_node, M)
+        fa.cat_mask[kar, cidx] = packed
 
     # 5. route every example of a split slot to its child
-    slotc = slot_of.clamp(min=0)
-    route = (slot_of >= 0) & valid.gather(1, slotc)
-    f_ex = feat_w.gather(1, slotc)                            # (K, N)
-    c_ex = torch.stack([codes.gather(1, f_ex[k][:, None])[:, 0]
-                        for k in range(K)]).to(torch.int64)
-    go = tbl[kar, slotc, c_ex].to(torch.int64)
-    l_ex = left_id.gather(1, slotc)
-    node_of = torch.where(route, l_ex + go, node_of)
-    r_ex = rank.gather(1, slotc)
-    slot_of = torch.where(route, 2 * r_ex + go, -1)
+    with trace.span("grower_device/route"):
+        slotc = slot_of.clamp(min=0)
+        route = (slot_of >= 0) & valid.gather(1, slotc)
+        f_ex = feat_w.gather(1, slotc)                            # (K, N)
+        c_ex = torch.stack([codes.gather(1, f_ex[k][:, None])[:, 0]
+                            for k in range(K)]).to(torch.int64)
+        go = tbl[kar, slotc, c_ex].to(torch.int64)
+        l_ex = left_id.gather(1, slotc)
+        node_of = torch.where(route, l_ex + go, node_of)
+        r_ex = rank.gather(1, slotc)
+        slot_of = torch.where(route, 2 * r_ex + go, -1)
 
     # 6. child stats in one segment sum; new frontier = compacted children
-    seg = torch.where(slot_of >= 0, slot_of, 2 * P)
-    csum = _segment_sum(torch.where(slot_of[:, :, None] >= 0, stats, 0.0),
-                        seg, 2 * P + 1)[:, :2 * P]            # (K, 2P, S)
-    child_node = torch.full((K, 2 * P + 1), -1, dtype=torch.int64, device=dev)
-    child_node[kar, torch.where(valid, 2 * rank, 2 * P)] = left_id
-    child_node[kar, torch.where(valid, 2 * rank + 1, 2 * P)] = left_id + 1
-    child_node = child_node[:, :2 * P]
-    nidx = torch.where(child_node >= 0, child_node, M)
-    fa.leaf_stats[kar, nidx] = csum
+    with trace.span("grower_device/child_stats"):
+        seg = torch.where(slot_of >= 0, slot_of, 2 * P)
+        csum = _segment_sum(torch.where(slot_of[:, :, None] >= 0, stats, 0.0),
+                            seg, 2 * P + 1)[:, :2 * P]            # (K, 2P, S)
+        child_node = torch.full((K, 2 * P + 1), -1, dtype=torch.int64,
+                                device=dev)
+        child_node[kar, torch.where(valid, 2 * rank, 2 * P)] = left_id
+        child_node[kar, torch.where(valid, 2 * rank + 1, 2 * P)] = left_id + 1
+        child_node = child_node[:, :2 * P]
+        nidx = torch.where(child_node >= 0, child_node, M)
+        fa.leaf_stats[kar, nidx] = csum
     return slot_of, child_node, nn, node_of, depth, nv
 
 
@@ -430,32 +437,35 @@ def grow_trees_device(forest: Forest, ts, binned: BinnedFeatures,
     cfg = _step_config(binned, S, M, params, dev)
     codes, nbins, iscat = _device_codes(binned, dev)
 
-    stats_np = np.zeros((K, N, S), np.float32)
-    act_np = np.zeros((K, N), bool)
-    for b in range(Kr):
-        stats_np[b] = stats_list[b].astype(np.float32)
-        act_np[b] = actives[b]
-    stats = torch.from_numpy(stats_np).to(dev)
-    node_of = torch.from_numpy(np.where(act_np, 0, -1).astype(np.int64)).to(dev)
-    slot_of = node_of
-    slot_node = torch.zeros((K, 1), dtype=torch.int64, device=dev)
-    tree_ids = torch.tensor([int(t) for t in ts] + [0] * (K - Kr),
-                            dtype=torch.int64, device=dev)
-    i64 = dict(dtype=torch.int64, device=dev)
-    fa = _DeviceForest(
-        feature=torch.full((K, M + 1), -1, **i64),
-        split_bin=torch.zeros((K, M + 1), **i64),
-        cat_mask=torch.zeros((K, M + 1, MASK_WORDS), **i64),
-        left_child=torch.full((K, M + 1), -1, **i64),
-        gain=torch.zeros((K, M + 1), dtype=torch.float32, device=dev),
-        leaf_stats=torch.zeros((K, M + 1, S), dtype=torch.float32, device=dev))
-    fa.leaf_stats[:, 0] = stats.sum(dim=1)
-    nn = torch.ones(K, **i64)
-    depth = torch.zeros(K, **i64)
+    # the block's stats and the empty device forest, uploaded
+    with trace.span("grower_device/setup", trees=Kr):
+        stats_np = np.zeros((K, N, S), np.float32)
+        act_np = np.zeros((K, N), bool)
+        for b in range(Kr):
+            stats_np[b] = stats_list[b].astype(np.float32)
+            act_np[b] = actives[b]
+        stats = torch.from_numpy(stats_np).to(dev)
+        node_of = torch.from_numpy(np.where(act_np, 0, -1).astype(np.int64)).to(dev)
+        slot_of = node_of
+        slot_node = torch.zeros((K, 1), dtype=torch.int64, device=dev)
+        tree_ids = torch.tensor([int(t) for t in ts] + [0] * (K - Kr),
+                                dtype=torch.int64, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        fa = _DeviceForest(
+            feature=torch.full((K, M + 1), -1, **i64),
+            split_bin=torch.zeros((K, M + 1), **i64),
+            cat_mask=torch.zeros((K, M + 1, MASK_WORDS), **i64),
+            left_child=torch.full((K, M + 1), -1, **i64),
+            gain=torch.zeros((K, M + 1), dtype=torch.float32, device=dev),
+            leaf_stats=torch.zeros((K, M + 1, S), dtype=torch.float32, device=dev))
+        fa.leaf_stats[:, 0] = stats.sum(dim=1)
+        nn = torch.ones(K, **i64)
+        depth = torch.zeros(K, **i64)
 
     for level in range(params.max_depth):
         # while tracing, the span closes after a CUDA sync so it holds the
-        # level's device time; untraced, launches queue without a sync
+        # level's device time; untraced, launches queue without a sync. The
+        # six phase spans inside it sync nowhere: they hold the host's part
         with trace.span("grower_device/level_step", level=level,
                         P=int(slot_node.shape[1])):
             slot_of, slot_node, nn, node_of, depth, nv = _level_step(
@@ -471,28 +481,30 @@ def grow_trees_device(forest: Forest, ts, binned: BinnedFeatures,
             break
         slot_node = slot_node[:, :_next_pow2(2 * nv_max)]
 
-    # one fetch per block: decode device arrays into the host Forest
+    # one fetch per block of the device arrays
     with trace.span("grower_device/fetch", trees=Kr):
         (feat_h, sbin_h, catm_h, left_h, gain_h, lstats_h, nn_h, node_h,
          depth_h) = (a.cpu().numpy() for a in (
              fa.feature[:, :M], fa.split_bin[:, :M], fa.cat_mask[:, :M],
              fa.left_child[:, :M], fa.gain[:, :M], fa.leaf_stats[:, :M], nn,
              node_of, depth))
-    for b, t in enumerate(ts):
-        n_t = int(nn_h[b])
-        forest.n_nodes[t] = n_t
-        forest.feature[t, :M] = feat_h[b]
-        forest.left_child[t, :M] = left_h[b]
-        forest.cat_mask[t, :M] = catm_h[b].astype(np.uint32)
-        forest.split_bin[t, :M] = np.maximum(sbin_h[b], 0).astype(np.uint16)
-        if forest.split_gain is not None:
-            forest.split_gain[t, :M] = gain_h[b]
-        for n in range(1, n_t):
-            forest.leaf_value[t, n] = leaf_fn(lstats_h[b, n].astype(np.float64))
-        for n in np.where((feat_h[b, :n_t] >= 0)
-                          & ~binned.is_cat[np.maximum(feat_h[b, :n_t], 0)])[0]:
-            f, sb = int(feat_h[b, n]), int(sbin_h[b, n])
-            sb = min(sb, len(binned.boundaries[f]))
-            forest.threshold[t, n] = binned.threshold_value(f, sb)
-        forest.depth = max(forest.depth, int(depth_h[b]))
+    # the fetched arrays into the host Forest: leaf values, thresholds
+    with trace.span("grower_device/decode", trees=Kr):
+        for b, t in enumerate(ts):
+            n_t = int(nn_h[b])
+            forest.n_nodes[t] = n_t
+            forest.feature[t, :M] = feat_h[b]
+            forest.left_child[t, :M] = left_h[b]
+            forest.cat_mask[t, :M] = catm_h[b].astype(np.uint32)
+            forest.split_bin[t, :M] = np.maximum(sbin_h[b], 0).astype(np.uint16)
+            if forest.split_gain is not None:
+                forest.split_gain[t, :M] = gain_h[b]
+            for n in range(1, n_t):
+                forest.leaf_value[t, n] = leaf_fn(lstats_h[b, n].astype(np.float64))
+            for n in np.where((feat_h[b, :n_t] >= 0)
+                              & ~binned.is_cat[np.maximum(feat_h[b, :n_t], 0)])[0]:
+                f, sb = int(feat_h[b, n]), int(sbin_h[b, n])
+                sb = min(sb, len(binned.boundaries[f]))
+                forest.threshold[t, n] = binned.threshold_value(f, sb)
+            forest.depth = max(forest.depth, int(depth_h[b]))
     return node_h[:Kr].astype(np.int32)

@@ -65,7 +65,8 @@ def _as_vertical(dataset, spec: DataSpec | None = None) -> VerticalDataset:
         return dataset
     if spec is not None:
         return encode_dataset(dataset, spec)
-    return dataset_from_raw(dataset)
+    with trace.span("models/dataspec"):
+        return dataset_from_raw(dataset)
 
 
 def raw_matrix(ds: VerticalDataset, features: list[str]) -> np.ndarray:
@@ -89,6 +90,12 @@ def raw_matrix(ds: VerticalDataset, features: list[str]) -> np.ndarray:
 
 def prepare_train_data(learner, dataset, *, features: list[str] | None = None,
                        max_bins: int = 255) -> TrainData:
+    with trace.span("models/prepare"):
+        return _prepare_train_data(learner, dataset, features, max_bins)
+
+
+def _prepare_train_data(learner, dataset, features: list[str] | None,
+                        max_bins: int) -> TrainData:
     ds = _as_vertical(dataset)
     label = learner.label
     if label not in ds.spec.columns:

@@ -6,25 +6,37 @@ Perfetto read: a dict with a ``traceEvents`` list of complete ("X") events
 (microsecond ``ts``/``dur``, ``pid``/``tid`` lanes, span args), instant
 ("i") events such as checkpoint rollbacks, and thread-name ("M") rows.
 ``validate_chrome_trace`` checks that structure (the CLI's ``profile``
-verb and the tests use it).
+verb and the tests use it). A captured tracer's document also carries
+``otherData``: ``origin_s``, the tracer-clock second at ``ts`` 0, and the
+tracer's ``epoch_offset_s`` / ``epoch_drift_s``, so an event's epoch second
+is ``origin_s + ts / 1e6 + epoch_offset_s``. ``device_ops`` reads the
+device's operations from a ``torch.profiler`` run onto the tracer's clock;
+given to ``chrome_trace``, they fill a lane of their own.
 
 ``phase_summary`` folds a span tree into per-phase aggregates (count /
 total / mean / max seconds, self-time excluding children), and
 ``profile_dict`` is the versioned wrapper that lands in
-``training_logs["profile"]``.
+``training_logs["profile"]`` (with the tracer's counters and samples under
+``metrics`` when it holds any).
 """
 from __future__ import annotations
 
 import json
 import numbers
-from typing import Any, Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 from .trace import Span, Tracer
 
 __all__ = ["chrome_trace", "write_chrome_trace", "phase_summary",
-           "profile_dict", "validate_chrome_trace"]
+           "profile_dict", "validate_chrome_trace", "device_ops"]
 
 PROFILE_SCHEMA_VERSION = 1
+
+# the lane of the device's operations in a Chrome trace
+DEVICE_LANE = "device"
+
+# (name, t0, t1): one device operation, in tracer-clock seconds
+DeviceOp = Tuple[str, float, float]
 
 
 def _roots(source: Union[Tracer, Iterable[Span]]) -> List[Span]:
@@ -34,9 +46,12 @@ def _roots(source: Union[Tracer, Iterable[Span]]) -> List[Span]:
 
 
 def chrome_trace(source: Union[Tracer, Iterable[Span]],
-                 *, pid: int = 1) -> Dict[str, Any]:
-    """Render a tracer (or span list) as a Chrome trace-event dict."""
+                 *, pid: int = 1,
+                 device: Iterable[DeviceOp] = ()) -> Dict[str, Any]:
+    """Render a tracer (or span list) as a Chrome trace-event dict, with
+    the ``device`` operations (``device_ops``) on a lane of their own."""
     roots = _roots(source)
+    device = list(device)
     tids: Dict[str, int] = {}
 
     def tid_of(name: str) -> int:
@@ -49,6 +64,8 @@ def chrome_trace(source: Union[Tracer, Iterable[Span]],
     if isinstance(source, Tracer) and source.events:
         t_origin = min(t_origin,
                        min(ev["ts"] for ev in source.events))
+    if device:
+        t_origin = min(t_origin, min(op[1] for op in device))
 
     for root in roots:
         for sp in root.walk():
@@ -81,18 +98,40 @@ def chrome_trace(source: Union[Tracer, Iterable[Span]],
                               for k, v in iev["args"].items()}
             events.append(ev)
 
+    for name, t0, t1 in device:
+        events.append({"name": name, "cat": DEVICE_LANE, "ph": "X",
+                       "ts": round((t0 - t_origin) * 1e6, 3),
+                       "dur": round((t1 - t0) * 1e6, 3),
+                       "pid": pid, "tid": tid_of(DEVICE_LANE)})
+
     # Thread-name metadata rows make the Perfetto lanes readable.
     for tname, tid in tids.items():
         events.append({"name": "thread_name", "ph": "M", "pid": pid,
                        "tid": tid, "args": {"name": tname}})
 
-    return {"traceEvents": events, "displayTimeUnit": "ms"}
+    doc: Dict[str, Any] = {"traceEvents": events, "displayTimeUnit": "ms"}
+    if isinstance(source, Tracer) and source.epoch_offset_s is not None:
+        doc["otherData"] = {"origin_s": t_origin,
+                            "epoch_offset_s": source.epoch_offset_s,
+                            "epoch_drift_s": source.epoch_drift_s}
+    return doc
 
 
-def write_chrome_trace(path: str,
-                       source: Union[Tracer, Iterable[Span]]) -> None:
+def write_chrome_trace(path: str, source: Union[Tracer, Iterable[Span]],
+                       device: Iterable[DeviceOp] = ()) -> None:
     with open(path, "w") as f:
-        json.dump(chrome_trace(source), f)
+        json.dump(chrome_trace(source, device=device), f)
+
+
+def device_ops(prof, tracer: Tracer) -> List[DeviceOp]:
+    """The device's operations (kernels, copies, sets) among a
+    ``torch.profiler.profile`` run's raw records, on the tracer's clock:
+    the profiler stamps them in epoch nanoseconds, and the tracer's
+    ``epoch_offset_s`` carries them over."""
+    off = tracer.epoch_offset_s or 0.0
+    return sorted((e.name(), e.start_ns() / 1e9 - off, e.end_ns() / 1e9 - off)
+                  for e in prof.profiler.kineto_results.events()
+                  if "CUDA" in str(e.device_type()))
 
 
 def phase_summary(source: Union[Tracer, Iterable[Span]]) -> Dict[str, Any]:
@@ -124,7 +163,7 @@ def profile_dict(tracer: Tracer,
     if top_events is not None and len(events) > top_events:
         events = events[:top_events]
         truncated = True
-    return {
+    out = {
         "schema_version": PROFILE_SCHEMA_VERSION,
         "span_count": tracer.span_count(),
         "phases": phase_summary(tracer),
@@ -133,6 +172,9 @@ def profile_dict(tracer: Tracer,
                     for k, v in ev.items()} for ev in events],
         "events_truncated": truncated,
     }
+    if len(tracer.metrics):
+        out["metrics"] = tracer.metrics.to_dict()
+    return out
 
 
 def validate_chrome_trace(doc: Any) -> None:

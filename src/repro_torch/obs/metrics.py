@@ -9,7 +9,7 @@ of one logical metric.
 
 Histograms keep an exact count/total plus a bounded reservoir (cap
 65536, drop-oldest-half on overflow) from which percentiles are computed.
-Registries merge and round-trip through plain dicts.
+A registry exports to a plain dict (``to_dict``).
 """
 from __future__ import annotations
 
@@ -98,33 +98,16 @@ class Histogram:
     def mean(self) -> float:
         return self.total / self.count if self.count else 0.0
 
-    def merge(self, other: "Histogram") -> None:
-        self.count += other.count
-        self.total += other.total
-        self.values.extend(other.values)
-        while len(self.values) > self.cap:
-            del self.values[: len(self.values) // 2]
-
     def to_dict(self) -> Dict[str, Any]:
         return {"count": self.count, "total": self.total,
                 "cap": self.cap, "reservoir": list(self.values)}
-
-    @classmethod
-    def from_dict(cls, d: Dict[str, Any]) -> "Histogram":
-        h = cls(cap=int(d.get("cap", DEFAULT_RESERVOIR_CAP)))
-        h.count = int(d["count"])
-        h.total = float(d["total"])
-        h.values = [float(v) for v in d.get("reservoir", ())]
-        return h
 
 
 class MetricsRegistry:
     """Labeled series of counters, gauges and histograms.
 
     ``counter/gauge/histogram`` are get-or-create: instrumented code
-    never pre-registers. ``merge`` adds counters, sums histograms and
-    takes the other registry's gauges (last write wins), so worker
-    registries roll up into a coordinator's without key coordination.
+    never pre-registers. ``len`` is the number of series of all kinds.
     """
 
     SCHEMA_VERSION = 1
@@ -158,6 +141,9 @@ class MetricsRegistry:
         return h
 
     # -- queries -------------------------------------------------------
+    def __len__(self) -> int:
+        return len(self._counters) + len(self._gauges) + len(self._hists)
+
     def series(self, name: str) -> Iterator[Tuple[Dict[str, str], Any]]:
         """Yield ``(labels_dict, instrument)`` for every series of name
         across all three kinds."""
@@ -176,19 +162,7 @@ class MetricsRegistry:
                     if hasattr(obj, "to_value") else obj
         return out
 
-    # -- merge / serialization ----------------------------------------
-    def merge(self, other: "MetricsRegistry") -> "MetricsRegistry":
-        for (n, key), c in other._counters.items():
-            self._counters.setdefault((n, key), Counter()).value += c.value
-        for (n, key), g in other._gauges.items():
-            self._gauges.setdefault((n, key), Gauge()).value = g.value
-        for (n, key), h in other._hists.items():
-            mine = self._hists.get((n, key))
-            if mine is None:
-                mine = self._hists[(n, key)] = Histogram(cap=h.cap)
-            mine.merge(h)
-        return self
-
+    # -- serialization -------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
         return {
             "schema_version": self.SCHEMA_VERSION,
@@ -199,31 +173,3 @@ class MetricsRegistry:
             "histograms": {_series_name(n, k): h.to_dict()
                            for (n, k), h in sorted(self._hists.items())},
         }
-
-    @classmethod
-    def from_dict(cls, d: Dict[str, Any]) -> "MetricsRegistry":
-        reg = cls()
-        for key, v in d.get("counters", {}).items():
-            name, labels = _parse_series_name(key)
-            reg.counter(name, **labels).value = int(v)
-        for key, v in d.get("gauges", {}).items():
-            name, labels = _parse_series_name(key)
-            reg.gauge(name, **labels).value = float(v)
-        for key, hd in d.get("histograms", {}).items():
-            name, labels = _parse_series_name(key)
-            lk = (name, _label_key(labels))
-            reg._hists[lk] = Histogram.from_dict(hd)
-        return reg
-
-
-def _parse_series_name(s: str) -> Tuple[str, Dict[str, str]]:
-    if "{" not in s:
-        return s, {}
-    name, rest = s.split("{", 1)
-    body = rest.rstrip("}")
-    labels: Dict[str, str] = {}
-    if body:
-        for part in body.split(","):
-            k, v = part.split("=", 1)
-            labels[k] = v
-    return name, labels

@@ -14,6 +14,14 @@ the server emit the same span names under either package:
   tests are deterministic and wall-clock-free.
 - Spans survive exceptions: the ``with`` block closes the span on the
   error path too and tags it ``error=<ExcType>``.
+- Counters and samples go to the tracer's ``metrics`` registry through
+  ``trace.count(name, n, **labels)`` and ``trace.observe(name, value,
+  **labels)``, which cost what ``span`` costs when tracing is off.
+- ``capture`` anchors the tracer's clock to the epoch clock that
+  ``torch.profiler`` stamps device operations with: ``epoch_offset_s``
+  (epoch seconds less tracer seconds, read at the start) and
+  ``epoch_drift_s`` (how far that offset moved by the end), so a span and a
+  device operation share one timeline without a second measurement.
 
 Span names follow ``subsystem/phase`` (e.g. ``engines/dispatch``,
 ``engines/compile``); exporters group on the full name.
@@ -24,9 +32,10 @@ import threading
 from typing import Any, Callable, Dict, List, Optional
 
 from . import clock as _clock
+from .metrics import MetricsRegistry
 
-__all__ = ["Span", "Tracer", "span", "event", "capture", "enabled",
-           "active", "start", "stop"]
+__all__ = ["Span", "Tracer", "span", "event", "count", "observe", "capture",
+           "enabled", "active"]
 
 
 class Span:
@@ -104,14 +113,28 @@ _NOOP_CTX = _NoopCtx()
 
 
 class Tracer:
-    """Collects well-nested spans per thread plus instant events."""
+    """Collects well-nested spans per thread, instant events, and counters
+    and samples in ``metrics``."""
 
     def __init__(self, clock: Optional[Callable[[], float]] = None) -> None:
         self.clock: Callable[[], float] = clock or _clock.perf
         self.roots: List[Span] = []
         self.events: List[Dict[str, Any]] = []
+        self.metrics = MetricsRegistry()
+        # epoch seconds less tracer seconds, and its change over the
+        # capture; set by ``capture`` (None for a tracer used by hand)
+        self.epoch_offset_s: Optional[float] = None
+        self.epoch_drift_s: Optional[float] = None
         self._tls = threading.local()
         self._lock = threading.Lock()
+
+    def epoch_offset(self) -> float:
+        """Epoch seconds less tracer seconds now (the epoch clock read
+        between two reads of the tracer's)."""
+        a = self.clock()
+        w = _clock.wall()
+        b = self.clock()
+        return w - (a + b) / 2
 
     # -- span lifecycle (called via _SpanCtx) --------------------------
     def _stack(self) -> List[Span]:
@@ -157,17 +180,11 @@ class Tracer:
     def find(self, name: str) -> List[Span]:
         return [s for r in self.roots for s in r.walk() if s.name == name]
 
-    def phase_names(self) -> List[str]:
-        seen: Dict[str, None] = {}
-        for r in self.roots:
-            for s in r.walk():
-                seen.setdefault(s.name, None)
-        return list(seen)
-
 
 # ----------------------------------------------------------------------
-# Module-level active tracer.  ``span``/``event`` are the only functions
-# instrumented code should call; everything else is test/tooling surface.
+# Module-level active tracer.  ``span``/``event``/``count``/``observe`` are
+# the only functions instrumented code should call (``enabled`` guards a
+# loop that runs only to feed them); the rest is test/tooling surface.
 # ----------------------------------------------------------------------
 _active: Optional[Tracer] = None
 _active_lock = threading.Lock()
@@ -188,28 +205,28 @@ def event(name: str, **args: Any) -> None:
         t.add_event(name, args)
 
 
+def count(name: str, n: int = 1, **labels: Any) -> None:
+    """Add ``n`` to the active tracer's counter ``name`` (bytes moved,
+    rows); nothing when tracing is off."""
+    t = _active
+    if t is not None:
+        t.metrics.counter(name, **labels).inc(n)
+
+
+def observe(name: str, value: float, **labels: Any) -> None:
+    """Sample ``value`` into the active tracer's histogram ``name`` (its
+    count and total are exact); nothing when tracing is off."""
+    t = _active
+    if t is not None:
+        t.metrics.histogram(name, **labels).observe(value)
+
+
 def enabled() -> bool:
     return _active is not None
 
 
 def active() -> Optional[Tracer]:
     return _active
-
-
-def start(clock: Optional[Callable[[], float]] = None) -> Tracer:
-    """Install a fresh active tracer and return it (idempotent stop via
-    ``stop()``). Prefer ``capture()`` unless you need manual control."""
-    global _active
-    tracer = Tracer(clock=clock)
-    with _active_lock:
-        _active = tracer
-    return tracer
-
-
-def stop() -> None:
-    global _active
-    with _active_lock:
-        _active = None
 
 
 class capture:
@@ -226,14 +243,18 @@ class capture:
 
     def __enter__(self) -> Tracer:
         global _active
+        tracer = Tracer(clock=self._clock)
+        tracer.epoch_offset_s = tracer.epoch_offset()
         with _active_lock:
             self._prev = _active
-            self.tracer = Tracer(clock=self._clock)
-            _active = self.tracer
-        return self.tracer
+            self.tracer = tracer
+            _active = tracer
+        return tracer
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         global _active
         with _active_lock:
             _active = self._prev
+        t = self.tracer
+        t.epoch_drift_s = t.epoch_offset() - t.epoch_offset_s
         return False

@@ -60,6 +60,7 @@ import numpy as np
 from repro_torch.core.api import EngineFailure, YdfError
 from repro_torch.core.engines import compile_predictor, resolve_device
 from repro_torch.obs import clock as obs_clock
+from repro_torch.obs import trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serving.faults import FaultyPredictor
 from repro_torch.serving.forest import DEFAULT_BUCKETS, ForestServeBundle
@@ -478,41 +479,46 @@ class ForestServer:
         met or the queue is full. ``deadline_s`` is relative to now;
         ``None`` falls back to the server default (``None`` = no deadline).
         """
-        st = self._state(model)
-        X = st.bundle(0).predictor.encode(batch)   # schema errors = caller's
-        now = self._clock()
-        if deadline_s is None:
-            deadline_s = self.default_deadline_s
-        self.metrics.submitted += 1
-        queued = st.pending_rows()
-        if queued + len(X) > self.max_queue_rows:
-            self.metrics.shed += 1
-            est = self._estimate_service_s(st, queued + len(X))
-            self.metrics.observe_latency(est or 0.0, outcome="shed")
-            raise RequestShed(
-                f"queue full for model {st.name!r}: {queued} rows pending, "
-                f"request adds {len(X)} (max_queue_rows={self.max_queue_rows})."
-                " Retry later or raise max_queue_rows.")
-        if deadline_s is not None:
-            est = self._estimate_service_s(st, queued + len(X))
-            if est is not None and est > deadline_s:
+        with trace.span("server/submit") as sp:   # rows, then ticket
+            st = self._state(model)
+            X = st.bundle(0).predictor.encode(batch)   # schema errors = caller's
+            if sp is not None:
+                sp.args["rows"] = len(X)
+            now = self._clock()
+            if deadline_s is None:
+                deadline_s = self.default_deadline_s
+            self.metrics.submitted += 1
+            queued = st.pending_rows()
+            if queued + len(X) > self.max_queue_rows:
                 self.metrics.shed += 1
-                self.metrics.observe_latency(est, outcome="shed")
+                est = self._estimate_service_s(st, queued + len(X))
+                self.metrics.observe_latency(est or 0.0, outcome="shed")
                 raise RequestShed(
-                    f"deadline {deadline_s * 1e3:.2f} ms cannot be met for "
-                    f"model {st.name!r}: {queued} rows queued ahead, "
-                    f"estimated completion in {est * 1e3:.2f} ms "
-                    f"(EWMA {st.ewma_row_s * 1e6:.1f} us/row). "
-                    "Shed at admission — widen the deadline or add capacity.")
-        ticket = self._next_ticket
-        self._next_ticket += 1
-        deadline = None if deadline_s is None else now + deadline_s
-        st.queue.append(_Request(ticket, st.name, X, deadline, now))
-        self._ticket_model[ticket] = st.name
-        self.metrics.accepted += 1
-        if pump and st.pending_rows() >= self.max_batch:
-            self.pump(model=st.name)
-        return ticket
+                    f"queue full for model {st.name!r}: {queued} rows pending, "
+                    f"request adds {len(X)} (max_queue_rows={self.max_queue_rows})."
+                    " Retry later or raise max_queue_rows.")
+            if deadline_s is not None:
+                est = self._estimate_service_s(st, queued + len(X))
+                if est is not None and est > deadline_s:
+                    self.metrics.shed += 1
+                    self.metrics.observe_latency(est, outcome="shed")
+                    raise RequestShed(
+                        f"deadline {deadline_s * 1e3:.2f} ms cannot be met for "
+                        f"model {st.name!r}: {queued} rows queued ahead, "
+                        f"estimated completion in {est * 1e3:.2f} ms "
+                        f"(EWMA {st.ewma_row_s * 1e6:.1f} us/row). "
+                        "Shed at admission — widen the deadline or add capacity.")
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            if sp is not None:
+                sp.args["ticket"] = ticket
+            deadline = None if deadline_s is None else now + deadline_s
+            st.queue.append(_Request(ticket, st.name, X, deadline, now))
+            self._ticket_model[ticket] = st.name
+            self.metrics.accepted += 1
+            if pump and st.pending_rows() >= self.max_batch:
+                self.pump(model=st.name)
+            return ticket
 
     # ------------------------------------------------------------ dispatch
 
@@ -616,8 +622,15 @@ class ForestServer:
             if not live:
                 continue
             X = np.concatenate([r.X for r in live], axis=0)
+            span_args = {}
+            if trace.enabled():                 # the server's own clock
+                for r in live:
+                    trace.observe("server/queue_wait_s", now - r.t_submit)
+                span_args = dict(rows=len(X), requests=len(live),
+                                 first=live[0].ticket, last=live[-1].ticket)
             try:
-                out = self._predict_resilient(st, X)
+                with trace.span("server/dispatch", **span_args):
+                    out = self._predict_resilient(st, X)
             except RequestFailed as e:
                 for r in live:
                     self.metrics.failed += 1
