@@ -133,8 +133,11 @@ def test_bytes_counters_equal_what_crosses(traced_predict):
     m = tr.metrics
     assert m.counter("engines/h2d_bytes").value == X.nbytes
     assert m.counter("engines/d2h_bytes").value == per_tree.nbytes
+    # adult_like's columns are object arrays: none takes the encoder's
+    # typed path, and the call counts 0 typed columns
     assert profile_dict(tr)["metrics"]["counters"] == {
-        "engines/d2h_bytes": per_tree.nbytes, "engines/h2d_bytes": X.nbytes}
+        "engines/d2h_bytes": per_tree.nbytes, "engines/h2d_bytes": X.nbytes,
+        "engines/encode_typed_cols": 0}
 
 
 def test_head_is_traced_and_pickles(traced_predict):
