@@ -420,8 +420,10 @@ class BatchEncoder:
         (k, N) float32 block, its NaNs replaced with the columns' means in
         one masked copy, and the block written to X transposed. Every other
         column (lists, object arrays, strings, BOOLEAN and CATEGORICAL
-        features) is parsed one by one from Python objects. Both give the
-        same bits; ``engines/encode_typed_cols`` counts the typed columns.
+        features) is parsed one by one from Python objects, inside an
+        ``engines/encode_objects`` span. Both give the same bits;
+        ``engines/encode_typed_cols`` and ``engines/encode_object_cols``
+        count the columns each path took.
         """
         if isinstance(data, VerticalDataset):
             from repro_torch.core.models import raw_matrix
@@ -459,6 +461,17 @@ class BatchEncoder:
                            casting="same_kind")
             np.copyto(block, self._fill[sel, None], where=np.isnan(block))
             X[:, sel] = block.T
+        if rest:
+            with trace.span("engines/encode_objects", rows=n,
+                            cols=len(rest)):
+                self._encode_objects(X, cols, rest)
+        trace.count("engines/encode_typed_cols", len(typed))
+        trace.count("engines/encode_object_cols", len(rest))
+        return X
+
+    def _encode_objects(self, X: np.ndarray, cols: list,
+                        rest: list[int]) -> None:
+        """Column by column from Python objects into X's columns ``rest``."""
         for j in rest:
             kind, name, fill, sorted_vocab, codes = self._plan[j]
             vals = cols[j]
@@ -477,5 +490,3 @@ class BatchEncoder:
                 v = np.where(found, codes[pos_c], 0).astype(np.float32)
                 v[miss] = fill
             X[:, j] = v
-        trace.count("engines/encode_typed_cols", len(typed))
-        return X

@@ -215,7 +215,8 @@ def _compile_forest_engine(forest: Forest, engine: str | None,
 def _traverse(forest: Forest, X: np.ndarray, impl: str,
               device: torch.device) -> np.ndarray:
     """The ``ref`` and ``cuda`` engines' call: upload and launch
-    (``engines/traverse``), then the (N, T, O) scores back to the host
+    (``engines/traverse``, where B2's launch adds its plan's ``variant``
+    and ``obl_width`` while tracing), then the (N, T, O) scores back to the host
     (``engines/copy_back``, which waits for the device), with the bytes
     each way counted."""
     with trace.span("engines/traverse", rows=len(X)):

@@ -37,6 +37,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.forest_infer import layout as node_layout
 from repro_torch.kernels.forest_infer import plan as launch_plan
 from repro_torch.kernels.forest_infer.layout import NodeLayout
+from repro_torch.obs import trace
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "forest_infer.cu"
 SINGLE_SOURCE = SOURCE.with_name("forest_single.cu")
@@ -130,7 +131,9 @@ def run_tiled(X: torch.Tensor, lay: NodeLayout, *, tree_order: bool = False,
               variant: str | None = None) -> torch.Tensor:
     """X (N, F) f32 over a packed layout -> (N, S, O) f32 in packed slot
     order, or (N, T, O) in tree order with ``tree_order``. ``variant``
-    forces the plan's "staged" or "global" way (see ``plan.py``)."""
+    forces the plan's "staged" or "global" way (see ``plan.py``). The
+    caller's open span, while tracing, gets the plan's ``variant`` and the
+    oblique pairs a node holds (``obl_width``)."""
     if not lay.packed:
         raise ValueError("run_tiled takes a packed layout")
     dev = _check_x(X, lay, "forest_predict_tiled")
@@ -138,6 +141,8 @@ def run_tiled(X: torch.Tensor, lay: NodeLayout, *, tree_order: bool = False,
         raise ValueError("tree order needs a layout built with inv_order")
     N, F = X.shape
     S, M, O = lay.slots, lay.max_nodes, lay.out_dim
+    pl = plan_of(lay, N, variant)
+    trace.annotate(variant=pl.variant, obl_width=lay.obl_dims)
     if dev.type == "cpu":
         return node_layout.walk(X, lay, tree_order=tree_order)
     cols = lay.n_trees if tree_order else S
@@ -145,7 +150,6 @@ def run_tiled(X: torch.Tensor, lay: NodeLayout, *, tree_order: bool = False,
     out = torch.empty((N, cols, O), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    pl = plan_of(lay, N, variant)
     global LAUNCHES
     err = lib.forest_infer_tiled(
         X.data_ptr(), N, F, lay.records.data_ptr(), lay.masks.data_ptr(),

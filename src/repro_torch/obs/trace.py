@@ -14,6 +14,9 @@ the server emit the same span names under either package:
   tests are deterministic and wall-clock-free.
 - Spans survive exceptions: the ``with`` block closes the span on the
   error path too and tags it ``error=<ExcType>``.
+- ``trace.annotate(**args)`` adds attributes to the innermost open span
+  of the calling thread, for a callee that knows what its caller's span
+  should say (the plan a kernel launch chose).
 - Counters and samples go to the tracer's ``metrics`` registry through
   ``trace.count(name, n, **labels)`` and ``trace.observe(name, value,
   **labels)``, which cost what ``span`` costs when tracing is off.
@@ -34,8 +37,8 @@ from typing import Any, Callable, Dict, List, Optional
 from . import clock as _clock
 from .metrics import MetricsRegistry
 
-__all__ = ["Span", "Tracer", "span", "event", "count", "observe", "capture",
-           "enabled", "active"]
+__all__ = ["Span", "Tracer", "span", "annotate", "event", "count", "observe",
+           "capture", "enabled", "active"]
 
 
 class Span:
@@ -196,6 +199,16 @@ def span(name: str, **args: Any):
     if t is None:
         return _NOOP_CTX
     return _SpanCtx(t, name, args)
+
+
+def annotate(**args: Any) -> None:
+    """Add ``args`` to the calling thread's innermost open span; nothing
+    when tracing is off or no span is open."""
+    t = _active
+    if t is not None:
+        stack = t._stack()
+        if stack:
+            stack[-1].args.update(args)
 
 
 def event(name: str, **args: Any) -> None:

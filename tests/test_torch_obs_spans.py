@@ -110,6 +110,7 @@ def test_boosting_loop_spans_once_a_tree(traced_training):
 
 
 PREDICT_NESTING = [
+    ("engines/encode_objects", "engines/encode"),
     ("engines/traverse", "engines/dispatch"),
     ("engines/copy_back", "engines/dispatch"),
     ("engines/encode", None),
@@ -134,10 +135,10 @@ def test_bytes_counters_equal_what_crosses(traced_predict):
     assert m.counter("engines/h2d_bytes").value == X.nbytes
     assert m.counter("engines/d2h_bytes").value == per_tree.nbytes
     # adult_like's columns are object arrays: none takes the encoder's
-    # typed path, and the call counts 0 typed columns
+    # typed path, and the call counts 0 typed columns and 6 object ones
     assert profile_dict(tr)["metrics"]["counters"] == {
         "engines/d2h_bytes": per_tree.nbytes, "engines/h2d_bytes": X.nbytes,
-        "engines/encode_typed_cols": 0}
+        "engines/encode_typed_cols": 0, "engines/encode_object_cols": 6}
 
 
 def test_head_is_traced_and_pickles(traced_predict):
@@ -148,6 +149,91 @@ def test_head_is_traced_and_pickles(traced_predict):
         again = back.predict(rows)
     np.testing.assert_array_equal(again, out)
     assert [s.args["rows"] for s in tr.find("engines/finalize")] == [100]
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """A small rank1-shaped GBT over Adult-width columns (the benchmark's
+    maker), a batch of its raw columns (6 int64, 8 object columns of str
+    with None) and a HIGGS-width batch of float64 columns."""
+    from bench import frozen, frozen_mixed, harness
+    from bench.generators import score_mixed
+    run = harness.make_run(harness.benchmark(),
+                           "gbt_rank1_adult.score_bulk_mixed", 3, 1.0,
+                           False, CPU, {"forest": {"trees": 6}})
+    model, _, spec = score_mixed.make_model(run)
+    rows = frozen_mixed.adult_rows(run.config["data"], 512, 3, 100,
+                                   labels=False)
+    higgs = frozen.synth_rows({"n_num": 28, "missing_rate": 0.02,
+                               "noise": 0.1}, 512, 3, 100, labels=False)
+    return model, rows, higgs, spec
+
+
+def test_object_path_columns_are_counted_and_spanned(mixed):
+    model, rows, _, _ = mixed
+    pred = model.predictor(None, CPU)
+    with trace.capture() as tr:
+        for _ in range(2):
+            pred.encode(rows)
+    m = tr.metrics
+    assert m.counter("engines/encode_object_cols").value == 16
+    assert m.counter("engines/encode_typed_cols").value == 12
+    spans = tr.find("engines/encode_objects")
+    assert [s.args for s in spans] == [{"rows": 512, "cols": 8}] * 2
+    assert_nested(tr, "engines/encode_objects", "engines/encode")
+
+
+def test_typed_batch_counts_no_object_column_and_opens_no_span(mixed):
+    from repro_torch.core.dataspec import BatchEncoder, infer_dataspec
+    _, _, higgs, _ = mixed
+    enc = BatchEncoder(infer_dataspec(higgs), list(higgs))
+    with trace.capture() as tr:
+        enc.encode(higgs)
+    assert tr.metrics.counter("engines/encode_object_cols").value == 0
+    assert tr.metrics.counter("engines/encode_typed_cols").value == 28
+    assert not tr.find("engines/encode_objects")
+
+
+def test_object_path_span_leaves_the_bits_as_they_were(mixed):
+    from bench import frozen_mixed, reference_mixed
+    model, rows, _, spec = mixed
+    pred = model.predictor(None, CPU)
+    plain = pred.encode(rows)
+    with trace.capture():
+        traced = pred.encode(rows)
+    np.testing.assert_array_equal(traced.view(np.uint32),
+                                  plain.view(np.uint32))
+    want, _ = reference_mixed.encode(rows, spec, model.features, CPU)
+    np.testing.assert_array_equal(plain.view(np.uint32),
+                                  want.numpy().view(np.uint32))
+
+
+def test_traverse_names_its_plan(mixed):
+    from repro_torch.core import engines
+    from repro_torch.kernels.forest_infer import forest_infer, ops
+    model, rows, _, _ = mixed
+    X = model.predictor(None, CPU).encode(rows)
+    dev = torch.device(CPU)
+    with trace.capture() as tr:
+        engines._traverse(model.forest, X, "cuda", dev)
+        engines._traverse(model.forest, X, "ref", dev)
+    lay = ops.device_packed(model.forest, dev).layout
+    want = forest_infer.plan_of(lay, len(X)).variant
+    a, b = tr.find("engines/traverse")
+    assert a.args == {"rows": 512, "variant": want, "obl_width": 6}
+    assert b.args == {"rows": 512}     # the reference walk runs no plan
+    with trace.capture() as tr:     # an axis-aligned forest holds no pairs
+        engines._traverse(_axis_forest(), X[:, :2].copy(), "cuda", dev)
+    assert tr.find("engines/traverse")[0].args["obl_width"] == 0
+
+
+def _axis_forest():
+    from repro_torch.core.tree import empty_forest
+    f = empty_forest(2, 3, 1)
+    f.feature[:, 0], f.left_child[:, 0], f.n_nodes[:] = 1, 1, 3
+    f.leaf_value[:, 1:, 0] = [-1.0, 1.0]
+    f.depth = 1
+    return f
 
 
 def test_count_and_observe_do_nothing_untraced():
@@ -168,6 +254,19 @@ def test_count_and_observe_do_nothing_untraced():
             pass
     assert "metrics" not in profile_dict(quiet)
     assert "metrics" in profile_dict(tr)
+
+
+def test_annotate_writes_the_innermost_open_span_only():
+    trace.annotate(lost=1)                  # untraced: nothing to write
+    with trace.capture() as tr:
+        trace.annotate(lost=2)              # no span open: dropped
+        with trace.span("a/outer", rows=3):
+            with trace.span("a/inner"):
+                trace.annotate(variant="staged")
+            trace.annotate(width=6)
+    outer, inner = tr.find("a/outer")[0], tr.find("a/inner")[0]
+    assert outer.args == {"rows": 3, "width": 6}
+    assert inner.args == {"variant": "staged"}
 
 
 @pytest.fixture
