@@ -1,16 +1,24 @@
-"""Host time of the request encoder, ``BatchEncoder.encode``, on raw rows
-at HIGGS width: 28 NUMERICAL float64 columns with 2% NaN for missing, the
-columns the benchmark's scoring and serving cells send.
+"""Host time of the request encoder, ``BatchEncoder.encode``, on raw rows.
 
-    python3 benchmarks/torch_encode_times.py [--rows 1 52 300 65536]
-        [--typed 1] [--out FILE]
+    python3 benchmarks/torch_encode_times.py [--case higgs|adult|distinct]
+        [--rows 1 52 300 65536] [--typed 1] [--out FILE]
+
+Cases:
+  * ``higgs`` (the default): 28 NUMERICAL float64 columns with 2% NaN for
+    missing, the columns the benchmark's HIGGS scoring and serving cells
+    send. ``--typed 0`` sends the same values as Python lists, which take
+    the per-column object path.
+  * ``adult``: the mixed cell's batches (``bench/frozen_mixed.py``): 6
+    int64 columns and 8 CATEGORICAL object columns of ``str`` with None,
+    against the dataspec of 32,561 training rows of the same make.
+  * ``distinct``: one CATEGORICAL column whose every value is a distinct
+    string (an ID column; its vocabulary holds 4,096 of the ids).
 
 Per row count: the median of 7 windows, each the mean of as many calls as
 fill about 0.2 s, in microseconds a call; ``--out`` appends the JSON line
-to FILE. ``--typed 0`` sends the same values as Python lists, which take
-the per-column object path. Runs on the host alone (no device); the
-package is the one on ``PYTHONPATH`` (``src`` by default), so two trees
-can be timed in one process's environment each.
+to FILE. Runs on the host alone (no device); the package is the one on
+``PYTHONPATH`` (``src`` by default), so two trees can be timed in one
+process's environment each.
 """
 from __future__ import annotations
 
@@ -34,6 +42,35 @@ def columns(n: int, seed: int) -> dict:
     return {f"num_{j}": np.ascontiguousarray(X[:, j]) for j in range(F)}
 
 
+def adult_case():
+    """(features, spec, batch maker) of the mixed cell's columns."""
+    sys.path.append(str(ROOT))
+    from bench import frozen_mixed, harness
+    from repro_torch.core.dataspec import spec_from_dict
+    data = harness.load_json(harness.BENCH / "configs"
+                             / "gbt_rank1_adult.json")["data"]
+    trained = frozen_mixed.adult_rows(data, data["rows_published"], 0, 0)
+    spec = spec_from_dict(frozen_mixed.spec_dict(trained, data))
+    return (frozen_mixed.features(data), spec,
+            lambda n: frozen_mixed.adult_rows(data, n, n + 1, 100,
+                                              labels=False))
+
+
+def distinct_case():
+    """(features, spec, batch maker) of one all-distinct string column."""
+    from repro_torch.core.dataspec import OOD, Column, DataSpec, Semantic
+    vocab = [f"id_{i:07d}" for i in range(4096)]
+    col = Column(name="id", semantic=Semantic.CATEGORICAL,
+                 vocab=[OOD] + vocab, counts=dict.fromkeys(vocab, 1))
+    spec = DataSpec(columns={"id": col}, n_rows=4096)
+
+    def batch(n):
+        r = np.random.default_rng(n + 1)
+        ids = r.permutation(10 * max(n, 4096))[:n]
+        return {"id": np.array([f"id_{i:07d}" for i in ids], dtype=object)}
+    return ["id"], spec, batch
+
+
 def time_call(fn, budget_s: float = 0.2, windows: int = 7) -> float:
     fn()
     t = time.perf_counter()
@@ -50,6 +87,8 @@ def time_call(fn, budget_s: float = 0.2, windows: int = 7) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--case", choices=("higgs", "adult", "distinct"),
+                    default="higgs")
     ap.add_argument("--rows", type=int, nargs="+", default=[1, 52, 300, 65536])
     ap.add_argument("--typed", type=int, choices=(0, 1), default=1)
     ap.add_argument("--out", default=None)
@@ -57,12 +96,18 @@ def main(argv=None) -> int:
     if not os.environ.get("PYTHONPATH"):
         sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.dataspec import BatchEncoder, infer_dataspec
-    names = [f"num_{j}" for j in range(F)]
-    enc = BatchEncoder(infer_dataspec(columns(4096, 0)), names)
+    if args.case == "higgs":
+        names = [f"num_{j}" for j in range(F)]
+        spec = infer_dataspec(columns(4096, 0))
+        make = lambda n: columns(n, n + 1)
+    else:
+        case = adult_case if args.case == "adult" else distinct_case
+        names, spec, make = case()
+    enc = BatchEncoder(spec, names)
     out = {"package": str(Path(sys.modules["repro_torch"].__file__).parent),
-           "typed": bool(args.typed), "us_per_call": {}}
+           "case": args.case, "typed": bool(args.typed), "us_per_call": {}}
     for n in args.rows:
-        batch = columns(n, n + 1)
+        batch = make(n)
         if not args.typed:
             batch = {k: v.tolist() for k, v in batch.items()}
         out["us_per_call"][n] = 1e6 * time_call(lambda: enc.encode(batch))

@@ -177,6 +177,31 @@ def _missing_mask(vals: np.ndarray) -> np.ndarray:
     return miss
 
 
+def _distinct(vals: np.ndarray) -> tuple[np.ndarray, np.ndarray] | None:
+    """A raw object column as (inv, distinct objects), ``vals[i]`` equal
+    to ``distinct[inv[i]]``, where every distinct object is a ``str`` (or
+    ``numpy.str_``) or None and they number at most half the rows; else
+    None. Any other key could merge values whose ``str`` forms differ (1,
+    1.0 and True hash as equal), and a column of mostly distinct objects
+    costs more to factorise than to encode cell by cell."""
+    seq = vals.tolist()
+    half = len(seq) // 2 + 1             # if all distinct, over half
+    try:
+        index = dict.fromkeys(seq[:half])
+        if 2 * len(index) > len(seq):
+            return None
+        index.update(dict.fromkeys(seq[half:]))
+    except TypeError:                    # an unhashable cell
+        return None
+    if 2 * len(index) > len(seq) or not all(
+            k is None or type(k) in (str, np.str_) for k in index):
+        return None
+    for i, k in enumerate(index):
+        index[k] = i
+    inv = np.fromiter(map(index.__getitem__, seq), np.intp, len(seq))
+    return inv, np.array(list(index), dtype=object)
+
+
 def _parse_numerical(vals: np.ndarray) -> np.ndarray:
     """Raw object column -> float32 with NaN for missing/unparsable."""
     try:
@@ -423,7 +448,11 @@ class BatchEncoder:
         features) is parsed one by one from Python objects, inside an
         ``engines/encode_objects`` span. Both give the same bits;
         ``engines/encode_typed_cols`` and ``engines/encode_object_cols``
-        count the columns each path took.
+        count the columns each path took. A CATEGORICAL column of ``str``
+        and None with at most half its rows distinct is encoded once per
+        distinct object (``_distinct``) and the codes gathered, with the
+        same bits; ``engines/encode_distinct_cols`` counts such columns
+        and ``engines/encode_distinct_values`` their distinct objects.
         """
         if isinstance(data, VerticalDataset):
             from repro_torch.core.models import raw_matrix
@@ -461,17 +490,23 @@ class BatchEncoder:
                            casting="same_kind")
             np.copyto(block, self._fill[sel, None], where=np.isnan(block))
             X[:, sel] = block.T
+        distinct = (0, 0)
         if rest:
             with trace.span("engines/encode_objects", rows=n,
                             cols=len(rest)):
-                self._encode_objects(X, cols, rest)
+                distinct = self._encode_objects(X, cols, rest)
         trace.count("engines/encode_typed_cols", len(typed))
         trace.count("engines/encode_object_cols", len(rest))
+        trace.count("engines/encode_distinct_cols", distinct[0])
+        trace.count("engines/encode_distinct_values", distinct[1])
         return X
 
     def _encode_objects(self, X: np.ndarray, cols: list,
-                        rest: list[int]) -> None:
-        """Column by column from Python objects into X's columns ``rest``."""
+                        rest: list[int]) -> tuple[int, int]:
+        """Column by column from Python objects into X's columns ``rest``;
+        returns the CATEGORICAL columns encoded per distinct object and
+        the distinct objects they held."""
+        n_cols = n_values = 0
         for j in rest:
             kind, name, fill, sorted_vocab, codes = self._plan[j]
             vals = cols[j]
@@ -482,6 +517,12 @@ class BatchEncoder:
                 v = _parse_boolean(vals).astype(np.float32)
                 v[v < 0] = fill
             else:
+                inv = None
+                factors = _distinct(vals)
+                if factors is not None:
+                    inv, vals = factors
+                    n_cols += 1
+                    n_values += len(vals)
                 miss = _missing_mask(vals)
                 s = vals.astype(str)
                 pos = np.searchsorted(sorted_vocab, s)
@@ -489,4 +530,7 @@ class BatchEncoder:
                 found = sorted_vocab[pos_c] == s
                 v = np.where(found, codes[pos_c], 0).astype(np.float32)
                 v[miss] = fill
+                if inv is not None:
+                    v = v[inv]
             X[:, j] = v
+        return n_cols, n_values

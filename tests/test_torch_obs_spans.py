@@ -135,10 +135,16 @@ def test_bytes_counters_equal_what_crosses(traced_predict):
     assert m.counter("engines/h2d_bytes").value == X.nbytes
     assert m.counter("engines/d2h_bytes").value == per_tree.nbytes
     # adult_like's columns are object arrays: none takes the encoder's
-    # typed path, and the call counts 0 typed columns and 6 object ones
+    # typed path, and the call counts 0 typed columns and 6 object ones;
+    # its 3 categorical columns of str and None are each encoded once per
+    # distinct value
+    cats = ("workclass", "education", "occupation")
     assert profile_dict(tr)["metrics"]["counters"] == {
         "engines/d2h_bytes": per_tree.nbytes, "engines/h2d_bytes": X.nbytes,
-        "engines/encode_typed_cols": 0, "engines/encode_object_cols": 6}
+        "engines/encode_typed_cols": 0, "engines/encode_object_cols": 6,
+        "engines/encode_distinct_cols": 3,
+        "engines/encode_distinct_values": sum(len(set(rows[c]))
+                                              for c in cats)}
 
 
 def test_head_is_traced_and_pickles(traced_predict):
