@@ -1,7 +1,9 @@
-"""Host time of the request encoder, ``BatchEncoder.encode``, on raw rows.
+"""Host time of the raw-column encoder on raw rows: ``BatchEncoder.encode``
+(serving) or ``encode_dataset`` (training).
 
-    python3 benchmarks/torch_encode_times.py [--case higgs|adult|distinct]
-        [--rows 1 52 300 65536] [--typed 1] [--out FILE]
+    python3 benchmarks/torch_encode_times.py
+        [--case higgs|adult|distinct|dataset] [--rows 1 52 300 65536]
+        [--typed 1] [--out FILE]
 
 Cases:
   * ``higgs`` (the default): 28 NUMERICAL float64 columns with 2% NaN for
@@ -13,12 +15,19 @@ Cases:
     against the dataspec of 32,561 training rows of the same make.
   * ``distinct``: one CATEGORICAL column whose every value is a distinct
     string (an ID column; its vocabulary holds 4,096 of the ids).
+  * ``dataset``: ``encode_dataset`` over the ``higgs`` case's columns, the
+    parse a training makes of its raw columns (``--rows 100000``).
 
 Per row count: the median of 7 windows, each the mean of as many calls as
 fill about 0.2 s, in microseconds a call; ``--out`` appends the JSON line
 to FILE. Runs on the host alone (no device); the package is the one on
 ``PYTHONPATH`` (``src`` by default), so two trees can be timed in one
-process's environment each.
+process's environment each. To compare two trees, alternate the processes,
+e.g. 10 turns a side:
+
+    for i in $(seq 10); do for t in PARENT CHANGE; do
+        PYTHONPATH=$t/src python3 benchmarks/torch_encode_times.py \
+            --case adult --rows 65536 --out times.jsonl; done; done
 """
 from __future__ import annotations
 
@@ -87,7 +96,8 @@ def time_call(fn, budget_s: float = 0.2, windows: int = 7) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--case", choices=("higgs", "adult", "distinct"),
+    ap.add_argument("--case",
+                    choices=("higgs", "adult", "distinct", "dataset"),
                     default="higgs")
     ap.add_argument("--rows", type=int, nargs="+", default=[1, 52, 300, 65536])
     ap.add_argument("--typed", type=int, choices=(0, 1), default=1)
@@ -95,22 +105,26 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not os.environ.get("PYTHONPATH"):
         sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.dataspec import BatchEncoder, infer_dataspec
-    if args.case == "higgs":
+    from repro_torch.core.dataspec import (BatchEncoder, encode_dataset,
+                                           infer_dataspec)
+    if args.case in ("higgs", "dataset"):
         names = [f"num_{j}" for j in range(F)]
         spec = infer_dataspec(columns(4096, 0))
         make = lambda n: columns(n, n + 1)
     else:
         case = adult_case if args.case == "adult" else distinct_case
         names, spec, make = case()
-    enc = BatchEncoder(spec, names)
+    if args.case == "dataset":
+        encode = lambda batch: encode_dataset(batch, spec)
+    else:
+        encode = BatchEncoder(spec, names).encode
     out = {"package": str(Path(sys.modules["repro_torch"].__file__).parent),
            "case": args.case, "typed": bool(args.typed), "us_per_call": {}}
     for n in args.rows:
         batch = make(n)
         if not args.typed:
             batch = {k: v.tolist() for k, v in batch.items()}
-        out["us_per_call"][n] = 1e6 * time_call(lambda: enc.encode(batch))
+        out["us_per_call"][n] = 1e6 * time_call(lambda: encode(batch))
     line = json.dumps(out)
     print(line)
     if args.out:

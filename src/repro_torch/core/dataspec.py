@@ -18,8 +18,9 @@ directory) and ``BatchEncoder``, which turns raw request columns into the
 
 The encoding is host numpy, as in the reference: bit-identical codes are
 what make trained models and served predictions equal the reference's.
-Training-time and serving-time encodes share ``_parse_numerical`` and
-``_parse_boolean``, so they cannot drift apart.
+Training-time and serving-time encodes share one column parse
+(``_columns`` then ``_parse``) and one fill rule (``_fill``, behind
+``raw_matrix`` and ``BatchEncoder.encode``), so they cannot drift apart.
 """
 from __future__ import annotations
 
@@ -177,31 +178,6 @@ def _missing_mask(vals: np.ndarray) -> np.ndarray:
     return miss
 
 
-def _distinct(vals: np.ndarray) -> tuple[np.ndarray, np.ndarray] | None:
-    """A raw object column as (inv, distinct objects), ``vals[i]`` equal
-    to ``distinct[inv[i]]``, where every distinct object is a ``str`` (or
-    ``numpy.str_``) or None and they number at most half the rows; else
-    None. Any other key could merge values whose ``str`` forms differ (1,
-    1.0 and True hash as equal), and a column of mostly distinct objects
-    costs more to factorise than to encode cell by cell."""
-    seq = vals.tolist()
-    half = len(seq) // 2 + 1             # if all distinct, over half
-    try:
-        index = dict.fromkeys(seq[:half])
-        if 2 * len(index) > len(seq):
-            return None
-        index.update(dict.fromkeys(seq[half:]))
-    except TypeError:                    # an unhashable cell
-        return None
-    if 2 * len(index) > len(seq) or not all(
-            k is None or type(k) in (str, np.str_) for k in index):
-        return None
-    for i, k in enumerate(index):
-        index[k] = i
-    inv = np.fromiter(map(index.__getitem__, seq), np.intp, len(seq))
-    return inv, np.array(list(index), dtype=object)
-
-
 def _parse_numerical(vals: np.ndarray) -> np.ndarray:
     """Raw object column -> float32 with NaN for missing/unparsable."""
     try:
@@ -222,6 +198,82 @@ def _parse_boolean(vals: np.ndarray) -> np.ndarray:
     out = np.isin(s, ("1", "1.0", "true")).astype(np.int32)
     out[miss] = -1
     return out
+
+
+_STR_KEYS = {str, np.str_, type(None)}
+
+
+def _vocab_table(col: Column) -> tuple[np.ndarray, np.ndarray]:
+    """A CATEGORICAL column's vocabulary, sorted, and each entry's code: a
+    string the vocabulary repeats takes its first index. An empty
+    vocabulary codes every value 0 (out-of-dictionary)."""
+    vocab = np.asarray(col.vocab or [OOD], dtype=str)
+    order = np.argsort(vocab, kind="stable")
+    return vocab[order], order.astype(np.int32)
+
+
+def _codes(vals: np.ndarray, table: tuple[np.ndarray, np.ndarray]
+           ) -> np.ndarray:
+    """Raw object column -> int32 dictionary codes (0 = out-of-dictionary)
+    with -1 for missing, through ``_vocab_table``'s ``table``.
+
+    A column whose objects are all ``str`` (or ``numpy.str_``) and None is
+    factorised first: its distinct objects are masked and looked up once
+    and the codes gathered (where no object repeats, the column is its own
+    distinct objects, in order). Any other column is masked cell by cell
+    on its own objects: 1, 1.0 and True hash as equal although their
+    ``str`` forms differ, and in ``[numpy.float32("nan"), 1.0]`` the first
+    cell is not missing as an object but is as the string "nan".
+    """
+    inv = None
+    seq = vals.tolist()
+    try:
+        index = dict.fromkeys(seq)
+    except TypeError:                    # an unhashable cell
+        index = None
+    if index is not None and len(index) < len(seq) \
+            and set(map(type, index)) <= _STR_KEYS:
+        keys = list(index)
+        index = dict(zip(keys, range(len(keys))))
+        inv = np.fromiter(map(index.__getitem__, seq), np.intp, len(seq))
+        vals = np.array(keys, dtype=object)
+    miss = _missing_mask(vals)
+    s = vals.astype(str)
+    sorted_vocab, codes = table
+    pos = np.minimum(np.searchsorted(sorted_vocab, s), len(sorted_vocab) - 1)
+    out = np.where(sorted_vocab[pos] == s, codes[pos], 0).astype(np.int32)
+    out[miss] = -1
+    return out if inv is None else out[inv]
+
+
+def _columns(data: Mapping[str, Any], names: list[str],
+             numerical: list[bool]) -> tuple[list[np.ndarray], list[int]]:
+    """The raw columns ``names``, flat, and the indices of those left to
+    ``_parse``: a NUMERICAL column (``numerical``) that is a numpy array of
+    booleans, integers or floats takes the typed cast to float64 (as
+    ``_parse_numerical`` goes); every other column becomes Python
+    objects."""
+    cols, rest = [], []
+    for j, (name, num) in enumerate(zip(names, numerical)):
+        raw = data[name]
+        if num and isinstance(raw, np.ndarray) and raw.dtype.kind in "biuf":
+            cols.append(np.asarray(raw, dtype=np.float64).ravel())
+        else:
+            cols.append(np.asarray(raw, dtype=object).ravel())
+            rest.append(j)
+    return cols, rest
+
+
+def _parse(vals: np.ndarray, col: Column,
+           table: tuple[np.ndarray, np.ndarray] | None = None) -> np.ndarray:
+    """An object column from ``_columns`` -> float32 with NaN for missing
+    (NUMERICAL) or int32 codes with -1 for missing (BOOLEAN; CATEGORICAL
+    through ``table``, by default built from ``col``)."""
+    if col.semantic == Semantic.NUMERICAL:
+        return _parse_numerical(vals)
+    if col.semantic == Semantic.BOOLEAN:
+        return _parse_boolean(vals)
+    return _codes(vals, _vocab_table(col) if table is None else table)
 
 
 # ----------------------------------------------------------------- inference
@@ -322,36 +374,72 @@ class VerticalDataset:
 
 
 def encode_dataset(data: Mapping[str, Any], spec: DataSpec) -> VerticalDataset:
-    numerical: dict[str, np.ndarray] = {}
-    categorical: dict[str, np.ndarray] = {}
-    n_rows = 0
-    for name, col in spec.columns.items():
+    names, specs = list(spec.columns), list(spec.columns.values())
+    for name in names:
         if name not in data:
             raise YdfError(
                 f"Column {name!r} of the dataspec is missing from the dataset. "
                 "Solutions: (1) provide the column, or (2) re-infer the dataspec "
                 "on this dataset.")
-        vals = np.asarray(data[name], dtype=object).ravel()
-        n_rows = len(vals)
+    cols, rest = _columns(data, names,
+                          [c.semantic == Semantic.NUMERICAL for c in specs])
+    for j in rest:
+        cols[j] = _parse(cols[j], specs[j])
+    numerical, categorical = {}, {}
+    for name, col, vals in zip(names, specs, cols):
         if col.semantic == Semantic.NUMERICAL:
-            numerical[name] = _parse_numerical(vals)
-        elif col.semantic == Semantic.BOOLEAN:
-            categorical[name] = _parse_boolean(vals)
+            numerical[name] = vals.astype(np.float32, copy=False)
         else:
-            lookup = {v: i for i, v in enumerate(col.vocab)}
-            miss = _missing_mask(vals)
-            uq, inv = np.unique(vals.astype(str), return_inverse=True)
-            code_of = np.fromiter((lookup.get(u, 0) for u in uq),
-                                  np.int32, len(uq))  # 0 = OOD
-            out = code_of[inv.reshape(len(vals))]
-            out[miss] = -1
-            categorical[name] = out
+            categorical[name] = vals
     return VerticalDataset(spec=spec, numerical=numerical,
-                           categorical=categorical, n_rows=n_rows)
+                           categorical=categorical,
+                           n_rows=len(cols[-1]) if cols else 0)
 
 
 def dataset_from_raw(data: Mapping[str, Any], **kw) -> VerticalDataset:
     return encode_dataset(data, infer_dataspec(data, **kw))
+
+
+def _fill_rule(spec: DataSpec, features: list[str]) -> list[tuple]:
+    """Where ``_fill`` writes each feature and what replaces a missing
+    value: the NUMERICAL features' indices and means, NaN marking a missing
+    value; the others' indices and code 1 (the most frequent, since
+    dictionaries are frequency-ordered) where a column has a dictionary,
+    else 0, a negative code marking a missing value."""
+    num, codes = ([], [], np.isnan), ([], [], np.signbit)
+    for j, name in enumerate(features):
+        col = spec[name]
+        if col.semantic == Semantic.NUMERICAL:
+            group, fill = num, col.mean
+        else:
+            group, fill = codes, 1.0 if col.vocab_size > 1 else 0.0
+        group[0].append(j)
+        group[1].append(fill)
+    return [(idx, np.array(fill, np.float32)[:, None], missing)
+            for idx, fill, missing in (num, codes) if idx]
+
+
+def _fill(cols: list[np.ndarray], rule: list[tuple], n: int) -> np.ndarray:
+    """Parsed columns -> the (n, F) float32 matrix, missing values imputed
+    by ``_fill_rule``'s ``rule``: the NUMERICAL columns, then the code
+    columns, each cast into one (k, n) block, its missing values replaced
+    in one masked copy and the block written to X transposed."""
+    X = np.empty((n, len(cols)), np.float32)
+    for idx, fill, missing in rule:
+        block = np.empty((len(idx), n), np.float32)
+        np.concatenate([cols[j] for j in idx], out=block.reshape(-1),
+                       casting="unsafe")
+        np.copyto(block, fill, where=missing(block))
+        # a basic slice where one block holds every column: numpy fills X
+        # through it far faster than through a list of column indices
+        X[:, idx if len(idx) < len(cols) else slice(None)] = block.T
+    return X
+
+
+def raw_matrix(ds: VerticalDataset, features: list[str]) -> np.ndarray:
+    """Raw-value matrix with GLOBAL imputation from the dataspec."""
+    return _fill([ds.column(name) for name in features],
+                 _fill_rule(ds.spec, features), ds.n_rows)
 
 
 def check_classification_label(col: Column, task: Task) -> None:
@@ -400,13 +488,9 @@ def label_values(model, dataset) -> np.ndarray:
 # ------------------------------------------- compiled row encoding (§5.1)
 
 class BatchEncoder:
-    """Vectorized raw->code tables, compiled once per (spec, features).
-
-      numerical   -> bulk float cast + the column's mean as imputation value
-      boolean     -> truthy-string table, missing -> the fill value
-      categorical -> sorted-vocab ``searchsorted`` table with the matching
-                     code permutation; out-of-dictionary -> 0 (OOD), missing
-                     -> most-frequent (code 1)
+    """Raw request columns -> the (N, F) float32 matrix, with the column
+    parse and the fill rule of ``raw_matrix(encode_dataset(...))``, their
+    vocabulary tables and fills built once per (spec, features).
 
     ``encode`` needs only the feature columns (requests carry no label) and
     returns the (N, F) float32 matrix the reference's ``BatchEncoder``
@@ -416,23 +500,12 @@ class BatchEncoder:
     def __init__(self, spec: DataSpec, features: list[str]):
         self.spec = spec
         self.features = list(features)
-        self._plan: list[tuple] = []
-        for name in self.features:
-            col = spec[name]
-            if col.semantic == Semantic.NUMERICAL:
-                self._plan.append(("num", name, np.float32(col.mean), None, None))
-            elif col.semantic == Semantic.BOOLEAN:
-                fill = np.float32(1.0 if col.vocab_size > 1 else 0.0)
-                self._plan.append(("bool", name, fill, None, None))
-            else:
-                vocab = np.asarray(col.vocab, dtype=str)
-                order = np.argsort(vocab, kind="stable")
-                fill = np.float32(1.0 if col.vocab_size > 1 else 0.0)
-                self._plan.append(("cat", name, fill, vocab[order],
-                                   order.astype(np.int32)))
-        # (name, NUMERICAL?) a column, and every column's fill in one row
-        self._cols = [(p[1], p[0] == "num") for p in self._plan]
-        self._fill = np.array([p[2] for p in self._plan], np.float32)
+        self._specs = [spec[name] for name in self.features]
+        self._numerical = [c.semantic == Semantic.NUMERICAL
+                           for c in self._specs]
+        self._tables = [_vocab_table(c) if c.semantic == Semantic.CATEGORICAL
+                        else None for c in self._specs]
+        self._rule = _fill_rule(spec, self.features)
 
     def encode(self, data) -> np.ndarray:
         """data: raw column mapping (feature columns suffice) or an
@@ -440,39 +513,19 @@ class BatchEncoder:
         (N, F) float32 matrix.
 
         A NUMERICAL feature whose column is a numpy array of booleans,
-        integers or floats takes the typed path: all such columns are cast
-        (through float64, as the object path's ``astype`` does) into one
-        (k, N) float32 block, its NaNs replaced with the columns' means in
-        one masked copy, and the block written to X transposed. Every other
-        column (lists, object arrays, strings, BOOLEAN and CATEGORICAL
-        features) is parsed one by one from Python objects, inside an
-        ``engines/encode_objects`` span. Both give the same bits;
-        ``engines/encode_typed_cols`` and ``engines/encode_object_cols``
-        count the columns each path took. A CATEGORICAL column of ``str``
-        and None with at most half its rows distinct is encoded once per
-        distinct object (``_distinct``) and the codes gathered, with the
-        same bits; ``engines/encode_distinct_cols`` counts such columns
-        and ``engines/encode_distinct_values`` their distinct objects.
+        integers or floats takes the typed cast (``_columns``); every other
+        column is parsed from Python objects inside an
+        ``engines/encode_objects`` span (``cols``: how many). ``_fill``
+        then writes X.
         """
         if isinstance(data, VerticalDataset):
-            from repro_torch.core.models import raw_matrix
             return raw_matrix(data, self.features)
         missing = [n for n in self.features if n not in data]
         if missing:
             raise YdfError(
                 f"Feature column(s) {missing} are missing from the request "
                 f"batch. The model requires: {self.features}.")
-        cols, typed, rest = [], [], []
-        for j, (name, num) in enumerate(self._cols):
-            raw = data[name]
-            if num and isinstance(raw, np.ndarray) \
-                    and raw.dtype.kind in "biuf":
-                # through float64, as the object path's ``astype`` goes
-                cols.append(np.asarray(raw, dtype=np.float64).ravel())
-                typed.append(j)
-            else:
-                cols.append(np.asarray(raw, dtype=object).ravel())
-                rest.append(j)
+        cols, rest = _columns(data, self.features, self._numerical)
         n = len(cols[0]) if cols else 0
         for name, vals in zip(self.features, cols):
             if len(vals) != n:
@@ -480,57 +533,9 @@ class BatchEncoder:
                     f"Feature column {name!r} has {len(vals)} values but "
                     f"{self.features[0]!r} has {n}; request batches must be "
                     "rectangular.")
-        X = np.empty((n, len(self.features)), np.float32)
-        if typed:
-            # a basic slice where every column is typed: numpy fills X
-            # through it far faster than through a list of column indices
-            sel = typed if rest else slice(None)
-            block = np.empty((len(typed), n), np.float32)
-            np.concatenate([cols[j] for j in typed], out=block.reshape(-1),
-                           casting="same_kind")
-            np.copyto(block, self._fill[sel, None], where=np.isnan(block))
-            X[:, sel] = block.T
-        distinct = (0, 0)
         if rest:
             with trace.span("engines/encode_objects", rows=n,
                             cols=len(rest)):
-                distinct = self._encode_objects(X, cols, rest)
-        trace.count("engines/encode_typed_cols", len(typed))
-        trace.count("engines/encode_object_cols", len(rest))
-        trace.count("engines/encode_distinct_cols", distinct[0])
-        trace.count("engines/encode_distinct_values", distinct[1])
-        return X
-
-    def _encode_objects(self, X: np.ndarray, cols: list,
-                        rest: list[int]) -> tuple[int, int]:
-        """Column by column from Python objects into X's columns ``rest``;
-        returns the CATEGORICAL columns encoded per distinct object and
-        the distinct objects they held."""
-        n_cols = n_values = 0
-        for j in rest:
-            kind, name, fill, sorted_vocab, codes = self._plan[j]
-            vals = cols[j]
-            if kind == "num":
-                v = _parse_numerical(vals)
-                v[np.isnan(v)] = fill
-            elif kind == "bool":
-                v = _parse_boolean(vals).astype(np.float32)
-                v[v < 0] = fill
-            else:
-                inv = None
-                factors = _distinct(vals)
-                if factors is not None:
-                    inv, vals = factors
-                    n_cols += 1
-                    n_values += len(vals)
-                miss = _missing_mask(vals)
-                s = vals.astype(str)
-                pos = np.searchsorted(sorted_vocab, s)
-                pos_c = np.minimum(pos, len(sorted_vocab) - 1)
-                found = sorted_vocab[pos_c] == s
-                v = np.where(found, codes[pos_c], 0).astype(np.float32)
-                v[miss] = fill
-                if inv is not None:
-                    v = v[inv]
-            X[:, j] = v
-        return n_cols, n_values
+                for j in rest:
+                    cols[j] = _parse(cols[j], self._specs[j], self._tables[j])
+        return _fill(cols, self._rule, n)

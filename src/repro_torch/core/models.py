@@ -34,6 +34,7 @@ from repro_torch.core.dataspec import (
     check_classification_label,
     dataset_from_raw,
     encode_dataset,
+    raw_matrix,
 )
 from repro_torch.core.evaluation import Evaluation
 from repro_torch.core.losses import Loss
@@ -67,25 +68,6 @@ def _as_vertical(dataset, spec: DataSpec | None = None) -> VerticalDataset:
         return encode_dataset(dataset, spec)
     with trace.span("models/dataspec"):
         return dataset_from_raw(dataset)
-
-
-def raw_matrix(ds: VerticalDataset, features: list[str]) -> np.ndarray:
-    """Raw-value matrix with GLOBAL imputation from the dataspec (mean /
-    most-frequent == code 1, since dictionaries are frequency-ordered)."""
-    N = ds.n_rows
-    X = np.zeros((N, len(features)), np.float32)
-    for j, name in enumerate(features):
-        col = ds.spec[name]
-        if col.semantic == Semantic.NUMERICAL:
-            v = ds.numerical[name].astype(np.float32).copy()
-            v[np.isnan(v)] = np.float32(col.mean)
-            X[:, j] = v
-        else:
-            v = ds.categorical[name].astype(np.float32).copy()
-            fill = 1.0 if col.vocab_size > 1 else 0.0
-            v[v < 0] = fill
-            X[:, j] = v
-    return X
 
 
 def prepare_train_data(learner, dataset, *, features: list[str] | None = None,

@@ -2,30 +2,33 @@
 arrays of booleans, integers or floats are encoded in one vectorised pass.
 
 Every case holds the port's encoder bit for bit (the float32 words, so
--0.0 and 0.0 differ) to two oracles: the per-column object path every
-column took before the typed path (``object_encode`` below) and the JAX
-package's ``repro.core.dataspec.BatchEncoder`` on the same spec. The
-cases cover each numeric dtype with NaN, infinities, -0.0 and values whose
-float32 differs when cast straight from int64; (n,) and (n, 1) columns;
-batches that mix typed columns with lists, object arrays, strings and
-BOOLEAN and CATEGORICAL features; 0, 1 and 65,536 rows. Ragged batches
-and missing features raise the errors they raised before, and the
-``engines/encode_typed_cols`` counter reads the typed columns of a call.
+-0.0 and 0.0 differ) to the JAX package's two encoders on the same spec:
+``repro.core.dataspec.BatchEncoder`` and ``raw_matrix(encode_dataset)``.
+The cases cover each numeric dtype with NaN, infinities, -0.0 and values
+whose float32 differs when cast straight from int64; (n,) and (n, 1)
+columns; batches that mix typed columns with lists, object arrays,
+strings and BOOLEAN and CATEGORICAL features; 0, 1 and 65,536 rows.
+Ragged batches and missing features raise the reference's errors, and
+only the columns off the typed path open an ``engines/encode_objects``
+span, which counts them in ``cols``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
 
 from repro.core import dataspec as ref_ds
 from repro.core.api import YdfError as RefYdfError
+from repro.core.models import raw_matrix as ref_raw_matrix
 from repro_torch.core import dataspec as ds
 from repro_torch.core.api import YdfError
 from repro_torch.obs import trace
 
 ROWS = (0, 1, 65_536)
 SHAPES = ("flat", "column")            # (n,) and (n, 1)
-COUNTER = "engines/encode_typed_cols"
+SPAN = "engines/encode_objects"
 
 # the float32 of each differs when cast straight from int64 and when cast
 # through float64 (double rounding), so they prove the path goes through
@@ -36,46 +39,26 @@ FLOAT_EDGES = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e300, -1e300, 1e-46,
                3.4028235e38, 1.0000000596046448, np.nan]
 
 
-def object_encode(enc: ds.BatchEncoder, data) -> np.ndarray:
-    """The per-column object path: every column through Python objects."""
-    missing = [n for n in enc.features if n not in data]
-    if missing:
-        raise YdfError(
-            f"Feature column(s) {missing} are missing from the request "
-            f"batch. The model requires: {enc.features}.")
-    first = np.asarray(data[enc.features[0]], dtype=object).ravel() \
-        if enc.features else np.zeros(0, object)
-    X = np.empty((len(first), len(enc.features)), np.float32)
-    for j, (kind, name, fill, sorted_vocab, codes) in enumerate(enc._plan):
-        vals = np.asarray(data[name], dtype=object).ravel()
-        if len(vals) != len(first):
-            raise YdfError(
-                f"Feature column {name!r} has {len(vals)} values but "
-                f"{enc.features[0]!r} has {len(first)}; request batches "
-                "must be rectangular.")
-        if kind == "num":
-            v = ds._parse_numerical(vals)
-            v[np.isnan(v)] = fill
-        elif kind == "bool":
-            v = ds._parse_boolean(vals).astype(np.float32)
-            v[v < 0] = fill
-        else:
-            miss = ds._missing_mask(vals)
-            s = vals.astype(str)
-            pos = np.searchsorted(sorted_vocab, s)
-            pos_c = np.minimum(pos, len(sorted_vocab) - 1)
-            found = sorted_vocab[pos_c] == s
-            v = np.where(found, codes[pos_c], 0).astype(np.float32)
-            v[miss] = fill
-        X[:, j] = v
-    return X
-
-
 def encoders(spec: ds.DataSpec, features: list[str]):
     """The port's encoder and the JAX package's, on the same spec."""
     ref_spec = ref_ds.spec_from_dict(ds.spec_to_dict(spec))
     return (ds.BatchEncoder(spec, features),
             ref_ds.BatchEncoder(ref_spec, features))
+
+
+def reference_pair(ref: ref_ds.BatchEncoder, data) -> tuple:
+    """The JAX package's two encodes of a batch's feature columns: its
+    ``BatchEncoder`` and ``raw_matrix(encode_dataset)`` over the spec's
+    feature columns."""
+    spec = dataclasses.replace(
+        ref.spec, columns={n: ref.spec[n] for n in ref.features})
+    return (ref.encode(data),
+            ref_raw_matrix(ref_ds.encode_dataset(data, spec), ref.features))
+
+
+def span_cols(tr) -> list:
+    """The ``cols`` arg of each ``engines/encode_objects`` span."""
+    return [s.args["cols"] for s in tr.find(SPAN)]
 
 
 def numerical_spec(names, means) -> ds.DataSpec:
@@ -126,8 +109,8 @@ def test_typed_column_matches_both_oracles(dtype, rows, shape):
     with trace.capture() as tr:
         got = enc.encode(batch)
     assert got.shape == (rows, 2)
-    assert_same_bits(got, object_encode(enc, batch), ref.encode(batch))
-    assert tr.metrics.counter(COUNTER).value == 2
+    assert_same_bits(got, *reference_pair(ref, batch))
+    assert span_cols(tr) == []
 
 
 def mixed_spec() -> ds.DataSpec:
@@ -145,7 +128,7 @@ def mixed_spec() -> ds.DataSpec:
 
 
 MIXED = list("abcdefghijk")
-MIXED_TYPED = 4                        # a, b, g and k
+MIXED_OBJECTS = 7                      # all but a, b, g and k
 
 
 def mixed_batch(n: int, seed: int) -> dict:
@@ -174,8 +157,9 @@ def test_mixed_batch_matches_both_oracles(rows):
     with trace.capture() as tr:
         got = enc.encode(batch)
     assert got.shape == (rows, len(MIXED))
-    assert_same_bits(got, object_encode(enc, batch), ref.encode(batch))
-    assert tr.metrics.counter(COUNTER).value == MIXED_TYPED
+    assert_same_bits(got, *reference_pair(ref, batch))
+    assert [s.args for s in tr.find(SPAN)] == \
+        [{"rows": rows, "cols": MIXED_OBJECTS}]
 
 
 def ragged_batches() -> dict:
@@ -194,14 +178,12 @@ def test_ragged_batch_raises_as_before(case):
     names = ["x", "y", "z"]
     enc, ref = encoders(numerical_spec(names, [0.0, 1.0, 2.0]), names)
     batch = ragged_batches()[case]
-    with pytest.raises(YdfError) as want:
-        object_encode(enc, batch)
     with pytest.raises(YdfError) as got:
         enc.encode(batch)
     with pytest.raises(RefYdfError) as ref_got:
         ref.encode(batch)
     assert "rectangular" in str(got.value)
-    assert str(got.value) == str(want.value) == str(ref_got.value)
+    assert str(got.value) == str(ref_got.value)
 
 
 @pytest.mark.parametrize("kind", ["typed", "lists"])
@@ -221,15 +203,18 @@ def test_missing_feature_raises_as_before(kind):
 
 @pytest.mark.parametrize("rows", [1, 52, 300])
 def test_counter_reads_typed_columns_per_call(rows):
+    """Typed columns open no ``engines/encode_objects`` span; the same
+    values as lists open one a call, of 28 columns."""
     names = [f"num_{j}" for j in range(28)]
-    enc, _ = encoders(numerical_spec(names, np.linspace(-1, 1, 28)), names)
+    enc, ref = encoders(numerical_spec(names, np.linspace(-1, 1, 28)),
+                        names)
     typed = {n: typed_column("float64", rows, j) for j, n in enumerate(names)}
     lists = {n: list(v) for n, v in typed.items()}
     with trace.capture() as tr:
         a = enc.encode(typed)
         b = enc.encode(typed)
-    assert tr.metrics.counter(COUNTER).value == 2 * 28
+    assert span_cols(tr) == []
     with trace.capture() as tr:
         c = enc.encode(lists)
-    assert tr.metrics.counter(COUNTER).value == 0
-    assert_same_bits(a, b, c, object_encode(enc, typed))
+    assert [s.args for s in tr.find(SPAN)] == [{"rows": rows, "cols": 28}]
+    assert_same_bits(a, b, c, *reference_pair(ref, typed))
