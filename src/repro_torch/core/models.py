@@ -395,9 +395,12 @@ class RandomForestModel(DecisionForestModel):
         self.bag_info: dict | None = None
 
     def _compile_finalize(self):
+        # an engine turns a leaf that is not finite into NaN at worst (an
+        # inf times a matmul's zero), so finite leaves read no NaN
         return _RfFinalize(self.winner_take_all and
                            self.task == Task.CLASSIFICATION,
-                           self.task == Task.REGRESSION)
+                           self.task == Task.REGRESSION,
+                           bool(np.isfinite(self.forest.leaf_value).all()))
 
 
 class CartModel(RandomForestModel):
@@ -443,9 +446,11 @@ class _GbtFinalize:
 class _RfFinalize:
     wta: bool
     regression: bool
+    # aggregate_rf's flag; a head pickled before it existed reads False
+    nan_free: bool = False
 
     def __call__(self, per_tree: np.ndarray) -> np.ndarray:
-        out = aggregate_rf(per_tree, self.wta)
+        out = aggregate_rf(per_tree, self.wta, self.nan_free)
         return out[:, 0] if self.regression else out
 
 

@@ -749,13 +749,44 @@ def aggregate_gbt(per_tree: np.ndarray, forest: Forest) -> np.ndarray:
     return out
 
 
-def aggregate_rf(per_tree: np.ndarray, winner_take_all: bool) -> np.ndarray:
-    """per_tree: (N, T, C) leaf distributions -> (N, C) probabilities."""
-    if winner_take_all and per_tree.shape[-1] > 1:
+def aggregate_rf(per_tree: np.ndarray, winner_take_all: bool,
+                 nan_free: bool = False) -> np.ndarray:
+    """per_tree: (N, T, C) leaf distributions -> (N, C) probabilities.
+
+    Winner-take-all (C > 1): each tree votes for the class of its largest
+    leaf value, and a class's probability is its share of the T votes,
+    ``count / T`` in float64 rounded once to float32. A tie goes to the
+    lowest class index, as ``argmax`` gives it. ``nan_free`` says that no
+    leaf can read NaN (``RandomForestModel._compile_finalize`` knows it
+    from the forest's leaves): the votes are then counted by strict
+    comparisons of the class slices. Otherwise the votes are taken by
+    ``argmax``, where the first NaN along the class axis wins. Both give the
+    same bits where both apply. Without winner-take-all: the mean over
+    trees."""
+    if not (winner_take_all and per_tree.shape[-1] > 1):
+        return per_tree.mean(axis=1)
+    N, T, C = per_tree.shape
+    out = np.empty((N, C), np.float32)
+    if not nan_free:
         votes = per_tree.argmax(-1)                     # (N, T)
-        C = per_tree.shape[-1]
-        out = np.zeros((per_tree.shape[0], C), np.float32)
         for c in range(C):
             out[:, c] = (votes == c).mean(axis=1)
         return out
-    return per_tree.mean(axis=1)
+    if C == 2:
+        one = np.count_nonzero(per_tree[..., 1] > per_tree[..., 0], axis=1)
+        out[:, 1] = one / T
+        out[:, 0] = (T - one) / T
+        return out
+    # a running best over the class slices: a class takes the vote only
+    # where it beats every lower class strictly, so each winner is larger
+    # than the one it replaces and np.maximum writes it
+    best = per_tree[..., 0]
+    votes = np.zeros((N, T), np.uint8 if C < 256 else np.intp)
+    for c in range(1, C):
+        v = per_tree[..., c]
+        np.maximum(votes, (v > best) * votes.dtype.type(c), out=votes)
+        if c < C - 1:
+            best = np.maximum(best, v)
+    for c in range(C):
+        out[:, c] = np.count_nonzero(votes == c, axis=1) / T
+    return out
